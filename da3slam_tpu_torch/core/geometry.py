@@ -1,0 +1,87 @@
+"""Pinhole camera geometry: backprojection and the depth-scale median
+(counterpart of ``da3slam_tpu/core/geometry.py``).
+
+Pixel convention: ``u`` is the column index, ``v`` the row index, rays are
+``K^-1 @ [u, v, 1]`` (no half-pixel offset).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from da3slam_tpu_torch.core.transforms import highest_precision, se3_inverse
+
+
+def pixel_grid(H: int, W: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """Homogeneous pixel coordinates ``[H, W, 3]`` = (u, v, 1)."""
+    v, u = torch.meshgrid(
+        torch.arange(H, dtype=dtype, device=device),
+        torch.arange(W, dtype=dtype, device=device),
+        indexing="ij",
+    )
+    return torch.stack([u, v, torch.ones_like(u)], dim=-1)
+
+
+def _invert_intrinsics(K: torch.Tensor) -> torch.Tensor:
+    """Closed-form inverse of a zero-skew pinhole matrix ``[..., 3, 3]``."""
+    fx, fy = K[..., 0, 0], K[..., 1, 1]
+    cx, cy = K[..., 0, 2], K[..., 1, 2]
+    zeros = torch.zeros_like(fx)
+    ones = torch.ones_like(fx)
+    row0 = torch.stack([1.0 / fx, zeros, -cx / fx], -1)
+    row1 = torch.stack([zeros, 1.0 / fy, -cy / fy], -1)
+    row2 = torch.stack([zeros, zeros, ones], -1)
+    return torch.stack([row0, row1, row2], dim=-2)
+
+
+@highest_precision()
+def backproject_depth(
+    depth: torch.Tensor, K: torch.Tensor, extrinsics: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Depth maps ``[..., H, W]`` → point maps ``[..., H, W, 3]``: camera
+    coordinates, or world coordinates when w2c ``extrinsics`` are given."""
+    H, W = depth.shape[-2], depth.shape[-1]
+    pix = pixel_grid(H, W, depth.dtype, depth.device)
+    Kinv = _invert_intrinsics(K)
+    rays = torch.einsum("...ij,hwj->...hwi", Kinv, pix)
+    cam = rays * depth[..., None]
+    if extrinsics is None:
+        return cam
+    c2w = se3_inverse(extrinsics)
+    Rw, tw = c2w[..., :3, :3], c2w[..., :3, 3]
+    return torch.einsum("...ij,...hwj->...hwi", Rw, cam) + tw[..., None, None, :]
+
+
+def depth_scale_ratio(
+    depth_prev: torch.Tensor,
+    depth_cur: torch.Tensor,
+    conf_prev: torch.Tensor | None = None,
+    conf_cur: torch.Tensor | None = None,
+    conf_th: float = 0.2,
+    min_points: int = 50,
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """Robust median depth-scale ``s`` with ``depth_prev ≈ s * depth_cur`` on
+    confident pixels, as a 0-d tensor on the inputs' device (no host sync).
+
+    The masked median sorts with invalid entries pushed to +inf and, for an
+    even count, averages the two middle elements (``torch.median`` would
+    return the lower one).  Fewer than ``min_points`` valid pairs, or a
+    non-finite / non-positive median, give 1.0.
+    """
+    d_prev = depth_prev.reshape(-1)
+    d_cur = depth_cur.reshape(-1)
+    mask = (d_prev > eps) & (d_cur > eps) & torch.isfinite(d_prev) & torch.isfinite(d_cur)
+    if conf_prev is not None and conf_cur is not None:
+        mask &= (conf_prev.reshape(-1) > conf_th) & (conf_cur.reshape(-1) > conf_th)
+
+    ratio = torch.where(mask, d_prev / d_cur.clamp_min(eps), torch.inf)
+    n = ratio.shape[0]
+    n_valid = mask.sum()
+    sorted_ratio = torch.sort(ratio).values
+    lo = torch.div(n_valid - 1, 2, rounding_mode="floor").clamp(0, n - 1)
+    hi = torch.div(n_valid, 2, rounding_mode="floor").clamp(0, n - 1)
+    mid = sorted_ratio.index_select(0, torch.stack([lo, hi]))  # tensor index: no host sync
+    med = 0.5 * (mid[0] + mid[1])
+    ok = (n_valid >= min_points) & torch.isfinite(med) & (med > 0)
+    return torch.where(ok, med, torch.ones_like(med))

@@ -1,0 +1,376 @@
+"""The port's registration, alignment, solver and CLI against ``da3slam_tpu``.
+
+Geometry comes from ``da3slam_tpu.utils.synthetic`` (a closed-form corner
+room) or from the real tiny model with the JAX package's seed-0 weights
+carried over by ``convert``; both packages get the same numpy inputs.  f32 on
+the CPU.  Tolerances: 1e-5 for closed-form math; 1e-4 where an iterative
+f32 solve (ICP) or a chain of chunk alignments compounds rounding.
+"""
+
+import functools
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from da3slam_tpu.core.geometry import backproject_depth as jbackproject
+from da3slam_tpu.models.config import get_preset as jget_preset
+from da3slam_tpu.models.da3 import DepthAnything3 as JDA3
+from da3slam_tpu.models.da3 import init_params as jinit
+from da3slam_tpu.ops import icp as jicp
+from da3slam_tpu.ops import registration as jreg
+from da3slam_tpu.slam import alignment as jalign
+from da3slam_tpu.slam.chunks import make_chunk_indices as jchunks
+from da3slam_tpu.slam.solver import SLAMSolver as JSolver
+from da3slam_tpu.utils.synthetic import (
+    SyntheticDA3,
+    make_synthetic_image_dir,
+    make_trajectory,
+    render_depth,
+)
+from da3slam_tpu_torch.core.geometry import backproject_depth
+from da3slam_tpu_torch.models.config import get_preset
+from da3slam_tpu_torch.models.convert import convert
+from da3slam_tpu_torch.models.da3 import DA3Net
+from da3slam_tpu_torch.models.da3 import DepthAnything3 as TDA3
+from da3slam_tpu_torch.ops import icp, registration
+from da3slam_tpu_torch.slam import alignment
+from da3slam_tpu_torch.slam.chunks import make_chunk_indices
+from da3slam_tpu_torch.slam.solver import SLAMSolver
+
+torch.set_num_threads(2)
+
+HW = (48, 64)
+K = np.array([[60.0, 0, 32.0], [0, 60.0, 24.0], [0, 0, 1]], np.float32)
+
+
+def T(x):
+    return torch.from_numpy(np.array(x, np.float32))
+
+
+def J(x):
+    return jnp.asarray(np.array(x, np.float32))
+
+
+def local_chunk(poses, idxs, scale=1.0):
+    """Chunk-local w2c (first frame = identity) and depth, as SyntheticDA3."""
+    E_ref = np.eye(4)
+    E_ref[:3] = poses[idxs[0]]
+    inv = np.linalg.inv(E_ref)
+    ext = []
+    for i in idxs:
+        E = np.eye(4)
+        E[:3] = poses[i]
+        ext.append((E @ inv)[:3])
+    ext = np.stack(ext).astype(np.float32)
+    ext[:, :, 3] *= scale
+    depth = np.stack([render_depth(poses[i], K, HW) for i in idxs]) * scale
+    return depth.astype(np.float32), ext
+
+
+class TestChunks:
+    @pytest.mark.parametrize("n,c,o", [(10, 4, 1), (11, 4, 1), (3, 5, 1), (31, 15, 1), (13, 5, 2)])
+    def test_matches_jax(self, n, c, o):
+        assert make_chunk_indices(n, c, o) == jchunks(n, c, o)
+
+    def test_invalid_overlap_raises(self):
+        with pytest.raises(ValueError):
+            make_chunk_indices(10, 3, 3)
+
+
+class TestRegistration:
+    def test_estimate_normals(self):
+        depth = render_depth(make_trajectory(3)[1], K, HW)
+        pm = np.asarray(jbackproject(J(depth), J(K)))
+        np.testing.assert_allclose(icp.estimate_normals(T(pm)).numpy(),
+                                   np.asarray(jicp.estimate_normals(J(pm))), atol=1e-5)
+
+    @pytest.mark.parametrize("with_scale", [False, True])
+    def test_icp_point_to_point(self, with_scale):
+        """The overlap case: the target frame's own cloud, moved by a small
+        known similarity; ICP recovers its inverse.  The surface is bumpy so
+        that all 6-7 degrees of freedom are observable (the corner room seen
+        head-on is nearly one plane)."""
+        v, u = np.mgrid[0:HW[0], 0:HW[1]].astype(np.float32)
+        depth = 2.5 + 0.4 * np.sin(u / 5.0) * np.cos(v / 4.0) + 0.2 * np.sin((u + v) / 9.0)
+        tgt = np.asarray(jbackproject(J(depth), J(K)))
+        ang = 0.02
+        R = np.array([[np.cos(ang), 0, np.sin(ang)], [0, 1, 0], [-np.sin(ang), 0, np.cos(ang)]])
+        s = 1.03 if with_scale else 1.0
+        src = (s * tgt[::4, ::4].reshape(-1, 3) @ R.T + [0.01, -0.02, 0.015]).astype(np.float32)
+        kw = dict(threshold=0.1, max_iterations=12, with_scale=with_scale)
+        jr = jicp.icp_point_to_point(J(src), J(tgt), J(K), **kw)
+        tr = icp.icp_point_to_point(T(src), T(tgt), T(K), **kw)
+        for a, b in zip(tr.transform, jr.transform):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4)
+        np.testing.assert_allclose(float(tr.fitness), float(jr.fitness), atol=1e-3)
+        np.testing.assert_allclose(float(tr.inlier_rmse), float(jr.inlier_rmse), atol=1e-4)
+        np.testing.assert_allclose(tr.transform.R.numpy(), R.T, atol=1e-3)
+        np.testing.assert_allclose(float(tr.transform.s), 1 / s, atol=1e-3)
+        assert float(tr.fitness) > 0.9
+
+    @pytest.mark.parametrize("with_scale", [False, True])
+    def test_weighted_umeyama(self, with_scale):
+        rng = np.random.default_rng(0)
+        src = rng.normal(size=(200, 3)).astype(np.float32)
+        ang = 0.3
+        R = np.array([[np.cos(ang), -np.sin(ang), 0], [np.sin(ang), np.cos(ang), 0], [0, 0, 1]])
+        dst = (1.3 * src @ R.T + np.array([0.2, -0.1, 0.5])).astype(np.float32)
+        dst += rng.normal(scale=1e-3, size=dst.shape).astype(np.float32)
+        w = rng.uniform(0, 1, size=200).astype(np.float32)
+        w[:20] = 0
+        jr = jreg.weighted_umeyama(J(src), J(dst), J(w), with_scale)
+        tr = registration.weighted_umeyama(T(src), T(dst), T(w), with_scale)
+        for a, b in zip(tr, jr):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
+
+
+class TestAlignment:
+    def test_chain_extrinsics(self):
+        poses = make_trajectory(5).astype(np.float32)
+        anchor = make_trajectory(3, seed=7)[2].astype(np.float32)
+        for idx in (0, 3):
+            np.testing.assert_allclose(
+                alignment.chain_extrinsics(T(poses), T(anchor), idx).numpy(),
+                np.asarray(jalign.chain_extrinsics(J(poses), J(anchor), idx)), atol=1e-5)
+
+    @pytest.mark.parametrize("method,anchor_idx", [("icp", 0), ("icp", 2), ("umeyama", 0)])
+    def test_align_chunk_single_overlap(self, method, anchor_idx):
+        poses = make_trajectory(9)
+        prev_depth, prev_ext = local_chunk(poses, [0, 1, 2, 3])
+        cur_idx = list(range(3 - anchor_idx, 8 - anchor_idx))
+        cur_depth, cur_ext = local_chunk(poses, cur_idx, scale=1.3)
+        conf = np.full((5, *HW), 1.5, np.float32)
+        args = dict(
+            prev_depth=prev_depth[-1], prev_conf=conf[0], prev_K=K,
+            cur_depth=cur_depth, cur_conf=conf, cur_K=np.stack([K] * 5),
+            cur_extrinsics=cur_ext, prev_overlap_global=prev_ext[-1],
+        )
+        cfg_j = jalign.AlignmentConfig(method=method, icp_max_iterations=25)
+        cfg_t = alignment.AlignmentConfig(method=method, icp_max_iterations=25)
+        jo = jalign.align_chunk_single_overlap(**{k: J(v) for k, v in args.items()},
+                                               config=cfg_j, anchor_idx=anchor_idx)
+        to = alignment.align_chunk_single_overlap(**{k: T(v) for k, v in args.items()},
+                                                  config=cfg_t, anchor_idx=anchor_idx)
+        np.testing.assert_allclose(float(to.depth_scale), float(jo.depth_scale), rtol=1e-6)
+        np.testing.assert_allclose(float(to.depth_scale), 1 / 1.3, rtol=1e-4)
+        for a, b in ((to.extrinsics_global, jo.extrinsics_global),
+                     (to.prev_overlap_for_next, jo.prev_overlap_for_next),
+                     (to.depth_scaled, jo.depth_scaled)):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4)
+        # the chain recovers the ground-truth global poses of the chunk
+        np.testing.assert_allclose(to.extrinsics_global.numpy(),
+                                   poses[cur_idx].astype(np.float32), atol=5e-3)
+
+    def test_irls_not_ported_raises(self):
+        poses = make_trajectory(4)
+        d, e = local_chunk(poses, [0, 1, 2, 3])
+        conf = np.ones_like(d)
+        with pytest.raises(NotImplementedError):
+            alignment.align_chunk_single_overlap(
+                T(d[-1]), T(conf[0]), T(K), T(d), T(conf), T(np.stack([K] * 4)), T(e), T(e[-1]),
+                config=alignment.AlignmentConfig(method="irls"))
+
+
+def ate_rmse(c2w_est, c2w_gt):
+    return float(np.sqrt(np.mean(np.sum((c2w_est[:, :3, 3] - c2w_gt[:, :3, 3]) ** 2, -1))))
+
+
+def gt_c2w(poses_w2c):
+    out = []
+    for E in poses_w2c:
+        M = np.eye(4)
+        M[:3] = E
+        out.append(np.linalg.inv(M))
+    return np.stack(out)
+
+
+class TestSolver:
+    CONFIG = {
+        "Model": {"chunk_size": 5, "overlap_size": 1, "keyframe_interval": 1,
+                  "sleep_between_chunk": 0, "port": 8080},
+        "Align": {"icp_max_iterations": 25},
+    }
+    SCALES = [1.0, 1.4, 0.7, 1.2, 0.9]  # tests/test_slam.py's
+    # powers of two: every rescale is exact in f32, so each overlap cloud is
+    # bitwise the previous chunk's and ICP's fixed point is exactly the identity
+    POW2_SCALES = [1.0, 2.0, 0.5, 1.0, 0.25]
+
+    def run_both(self, tmp_path, chunk_scales, n_frames=14, device_resident=False):
+        """14 frames in chunks of 5: [0, 5), [4, 9), [8, 13) and the
+        re-anchored tail [9, 14), whose anchor sits at index 3."""
+        poses = make_trajectory(n_frames)
+        image_dir = make_synthetic_image_dir(tmp_path, n_frames)
+        jsolver = JSolver(image_dir, self.CONFIG,
+                          model=SyntheticDA3(poses, chunk_scales=chunk_scales), viewer=None)
+        jsolver.run()
+        cfg = {k: dict(v) for k, v in self.CONFIG.items()}
+        cfg["Model"]["device_resident"] = device_resident
+        tsolver = SLAMSolver(image_dir, cfg, model=SyntheticDA3(poses, chunk_scales=chunk_scales),
+                             device="cpu")
+        tsolver.run()
+        return tsolver, jsolver.trajectory()[0], gt_c2w(poses)
+
+    @pytest.mark.parametrize("chunk_scales,ate_bound", [(None, 5e-3), (POW2_SCALES, 1e-2)])
+    def test_matches_jax_solver(self, tmp_path, chunk_scales, ate_bound):
+        tsolver, c2w_jax, gt = self.run_both(tmp_path, chunk_scales)
+        c2w, intrs = tsolver.trajectory()
+        assert c2w.shape == (14, 4, 4) and intrs.shape == (14, 3, 3)
+        assert [r["dedup_skip"] for r in tsolver.results] == [0, 1, 1, 4]
+        np.testing.assert_allclose(c2w, c2w_jax, atol=1e-4)
+        assert ate_rmse(c2w, gt) < ate_bound
+
+    def test_inexact_chunk_scales(self, tmp_path, capsys):
+        """Scales like 1.4 are inexact in f32: the rescaled overlap cloud
+        differs from the previous chunk's by rounding, and ICP between two
+        near-identical clouds wanders at that noise floor.  The test first
+        pins that conditioning: one ulp more in one chunk scale moves the
+        JAX package's own trajectory by more than 1e-4, so 1e-4 agreement
+        between two f32 implementations that sum in different orders is
+        below what the problem resolves.  The port is then held to the JAX
+        package's per-chunk depth scales (as printed), to its trajectory at
+        1e-3, and to the ground truth at tests/test_slam.py's ATE bound."""
+        tsolver, c2w_jax, gt = self.run_both(tmp_path, self.SCALES)
+        scales = [ln.split("depth_scale=")[1].split()[0]
+                  for ln in capsys.readouterr().out.splitlines() if "depth_scale=" in ln]
+        assert len(scales) == 6 and scales[:3] == scales[3:]  # JAX's 3 chunks, then the port's
+
+        nudged = list(self.SCALES)
+        nudged[2] = float(np.nextafter(np.float32(nudged[2]), np.float32(1.0)))
+        jsolver = JSolver(tsolver.image_dir, self.CONFIG,
+                          model=SyntheticDA3(make_trajectory(14), chunk_scales=nudged), viewer=None)
+        jsolver.run()
+        assert np.abs(jsolver.trajectory()[0] - c2w_jax).max() > 1e-4
+
+        c2w, _ = tsolver.trajectory()
+        np.testing.assert_allclose(c2w, c2w_jax, atol=1e-3)
+        assert ate_rmse(c2w, gt) < 1e-2
+
+    def test_device_resident_matches_host_path(self, tmp_path):
+        tsolver, c2w_jax, gt = self.run_both(tmp_path, self.SCALES, device_resident=True)
+        host = SLAMSolver(tsolver.image_dir, self.CONFIG,
+                          model=SyntheticDA3(make_trajectory(14), chunk_scales=self.SCALES),
+                          device="cpu")
+        host.run()
+        np.testing.assert_allclose(tsolver.trajectory()[0], host.trajectory()[0], atol=1e-6)
+        assert all(isinstance(r["extrinsics_global"], np.ndarray) for r in tsolver.results)
+
+    def test_rejects_what_is_not_ported(self, tmp_path):
+        model = SyntheticDA3(make_trajectory(3))
+        with pytest.raises(NotImplementedError, match="viewer"):
+            SLAMSolver(str(tmp_path), self.CONFIG, model=model, viewer="auto", device="cpu")
+        with pytest.raises(NotImplementedError, match="loop closure"):
+            SLAMSolver(str(tmp_path), {**self.CONFIG, "Loop": {"enable": True}}, model=model,
+                       device="cpu")
+
+
+class TestHostIO:
+    def test_paths_config_and_trajectory_files_match_jax(self, tmp_path):
+        from da3slam_tpu.inout import (
+            extract_keyframes as j_kf,
+            load_config as j_cfg,
+            load_image_paths as j_paths,
+            save_camera_poses as j_save,
+        )
+        from da3slam_tpu_torch.inout import (
+            extract_keyframes,
+            load_config,
+            load_image_paths,
+            save_camera_poses,
+        )
+
+        d = Path(make_synthetic_image_dir(tmp_path, 12))
+        (d / "frame_100.png").touch()
+        assert load_image_paths(d) == j_paths(d)
+        assert extract_keyframes(load_image_paths(d), 3) == j_kf(j_paths(d), 3)
+        assert load_config("configs/config1.yaml") == j_cfg("configs/config1.yaml")
+
+        c2w = gt_c2w(make_trajectory(4))
+        intr = np.stack([K] * 4)
+        for save, out in ((save_camera_poses, tmp_path / "t"), (j_save, tmp_path / "j")):
+            save(out, c2w, intr, chunk_indices=np.array([0, 0, 1, 1]))
+        for name in ("camera_poses.txt", "intrinsic.txt", "camera_poses.ply"):
+            assert (tmp_path / "t" / name).read_bytes() == (tmp_path / "j" / name).read_bytes()
+
+    def test_prefetcher_returns_decoded_frames(self, tmp_path):
+        from PIL import Image
+
+        from da3slam_tpu_torch.inout.images import decode_image
+        from da3slam_tpu_torch.inout.prefetch import ImagePrefetcher
+
+        rng = np.random.default_rng(0)
+        paths = []
+        for i in range(9):
+            p = tmp_path / f"{i:03d}.png"
+            Image.fromarray(rng.integers(0, 256, size=(8, 10, 3)).astype(np.uint8)).save(p)
+            paths.append(str(p))
+        pf = ImagePrefetcher(paths, lookahead=4, workers=2)
+        try:
+            for chunk in (paths[0:4], paths[3:7], paths[5:9], paths[0:2]):
+                got = pf.get_batch(chunk)
+                np.testing.assert_array_equal(got, np.stack([decode_image(p) for p in chunk]))
+        finally:
+            pf.close()
+        assert not any(t.is_alive() for t in pf._threads)
+
+
+def make_frames(n=11, h=56, w=70, seed=0):
+    rng = np.random.default_rng(seed)
+    base = rng.integers(40, 200, size=(h, w, 3))
+    frames = [np.roll(base, shift=i * 2, axis=1) + rng.integers(0, 20, size=(h, w, 3))
+              for i in range(n)]
+    return np.clip(np.stack(frames), 0, 255).astype(np.uint8)
+
+
+class TestWholeSlice:
+    def test_both_clis_agree(self, tmp_path, monkeypatch):
+        """main_slam of both packages over one PNG directory with the same
+        tiny weights: 11 frames in chunks of 4 (two steady chunks after the
+        first and a re-anchored tail), closed-form Umeyama alignment (ICP on
+        random-init depth is chaotic), process_res 70 (no resampling)."""
+        from PIL import Image
+
+        from da3slam_tpu.cli import main_slam as j_main
+        from da3slam_tpu_torch.cli import main_slam as t_main
+
+        frames_dir = tmp_path / "frames"
+        frames_dir.mkdir()
+        for i, f in enumerate(make_frames()):
+            Image.fromarray(f).save(frames_dir / f"{i:06d}.png")
+        cfg = tmp_path / "slam.yaml"
+        cfg.write_text("Weights: {DA3: tiny}\n"
+                       "Model: {chunk_size: 4, overlap_size: 1, keyframe_interval: 1}\n"
+                       "Align: {method: umeyama}\n")
+
+        jparams = jax.tree.map(np.asarray, jinit(jax.random.PRNGKey(0), jget_preset("tiny")))
+        net = DA3Net(get_preset("tiny"))
+        net.load_state_dict(convert(jparams), strict=True)
+        monkeypatch.setattr(TDA3, "from_pretrained", classmethod(
+            lambda cls, preset, seed=0, device="cuda": cls(get_preset("tiny"), net.to(device))))
+        for cls in (JDA3, TDA3):
+            orig = cls.inference
+            monkeypatch.setattr(cls, "inference", functools.partialmethod(orig, process_res=70))
+
+        common = ["--image_dir", str(frames_dir), "--config", str(cfg), "--headless"]
+        j_main.main(common + ["--output_dir", str(tmp_path / "jax")])
+        t_main.main(common + ["--output_dir", str(tmp_path / "port"), "--device", "cpu"])
+        jp = np.loadtxt(tmp_path / "jax" / "camera_poses.txt")
+        tp = np.loadtxt(tmp_path / "port" / "camera_poses.txt")
+        assert tp.shape == (11, 16) and np.isfinite(tp).all()
+        np.testing.assert_allclose(tp, jp, atol=1e-4)
+        np.testing.assert_allclose(np.loadtxt(tmp_path / "port" / "intrinsic.txt"),
+                                   np.loadtxt(tmp_path / "jax" / "intrinsic.txt"), atol=1e-3)
+
+    def test_cli_refuses_missing_cuda_and_viewer(self, tmp_path):
+        from da3slam_tpu_torch.cli import main_slam
+
+        with pytest.raises(NotImplementedError, match="headless"):
+            main_slam.main(["--image_dir", str(tmp_path), "--device", "cpu"])
+        if torch.cuda.is_available():
+            return
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main_slam.main(["--image_dir", str(tmp_path), "--headless"])
