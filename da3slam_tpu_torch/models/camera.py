@@ -61,6 +61,11 @@ def apply_camera_head(
     """camera_tokens: ``[N, D]`` (final-norm camera token per view), run in f32.
 
     Returns ``(extrinsics [N, 3, 4] w2c, intrinsics [N, 3, 3])``.
+
+    ``highest_precision`` holds only while this forward runs: its backward
+    runs later, inside ``loss.backward()``, at whatever TF32 setting is then
+    in force.  That is full f32 under torch's defaults (cuBLAS TF32 is off
+    unless a caller turns it on; the head has no convolution).
     """
     x = camera_tokens.float()
     h = F.gelu(F.linear(x, head.mlp.fc1.weight, head.mlp.fc1.bias), approximate="tanh")

@@ -7,6 +7,10 @@ dict that ``DA3Net.load_state_dict(strict=True)`` takes unchanged.  Layouts:
 HWIO conv kernels → torch OIHW (ConvTranspose2d: [in, out, kh, kw]),
 ``[in, out]`` linears → ``[out, in]``, the ``[G, G, D]`` pos-embed →
 ``[1, 1 + G², D]`` with a leading zero cls row.
+
+The map is linear and takes any pytree shaped like the parameters, so it
+also carries ``jax.grad`` gradients into the layout of the port's
+``param.grad`` (the training tests compare them that way).
 """
 
 from __future__ import annotations

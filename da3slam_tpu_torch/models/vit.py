@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from da3slam_tpu_torch.models.config import ModelConfig
 from da3slam_tpu_torch.ops.attention import multi_head_attention
@@ -196,7 +197,12 @@ def encode(
     tap_set = set(cfg.dpt_layers)
     for i, blk in enumerate(enc.blocks):
         cross = (i % cfg.cross_view_interval) == (cfg.cross_view_interval - 1)
-        x = _block(blk, x, cfg.num_heads, cross)
+        if cfg.remat:
+            # recompute the block's activations in the backward pass (trade
+            # FLOPs for memory when training the large tiers)
+            x = checkpoint(_block, blk, x, cfg.num_heads, cross, use_reentrant=False)
+        else:
+            x = _block(blk, x, cfg.num_heads, cross)
         if i in tap_set:
             taps.append(x)
     return taps, layer_norm(enc.norm, x), grid

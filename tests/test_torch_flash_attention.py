@@ -1,11 +1,12 @@
-"""The port's bound-mode attention against the JAX package's Pallas forward.
+"""The port's flash attention against the JAX package's Pallas kernels.
 
-CPU cases: the plain torch version (``flash_attention_bound_reference``)
-against ``da3slam_tpu``'s ``flash_attention(stable=False)`` run through the
-Pallas interpreter, on the same numpy inputs.  CUDA cases (marker ``cuda``,
-skipped without a card) hold the hand-written kernel against the plain
-version on the card.  JAX is imported inside the CPU cases only, so the CUDA
-cases run where JAX is absent:
+CPU cases: the plain torch versions (both forwards, the backward) against
+``da3slam_tpu``'s ``flash_attention`` run through the Pallas interpreter, on
+the same numpy inputs; the differentiable entry point (``FlashAttention``)
+under gradcheck and through ``multi_head_attention``.  CUDA cases (marker
+``cuda``, skipped without a card) hold each hand-written kernel against its
+plain version on the card.  JAX is imported inside the CPU cases only, so
+the CUDA cases run where JAX is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_flash_attention.py
 """
@@ -18,13 +19,29 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from da3slam_tpu_torch.ops.attention import multi_head_attention
 from da3slam_tpu_torch.ops.flash_attention import (
+    LN2,
+    LOG2E,
+    STABLE_BLOCK_K,
+    attention_delta,
+    flash_attention,
+    flash_attention_backward,
+    flash_attention_backward_reference,
     flash_attention_bound,
     flash_attention_bound_reference,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dkv_reference,
+    flash_attention_bwd_dq,
+    flash_attention_bwd_dq_reference,
+    flash_attention_stable,
+    flash_attention_stable_reference,
 )
 
 torch.set_num_threads(2)
+COUNTED = (flash_attention_bound, flash_attention_stable, flash_attention_bwd_dq,
+           flash_attention_bwd_dkv)
 
 
 def rand_qkv(seed, B, S, H, D=64, scale=1.0):
@@ -33,20 +50,65 @@ def rand_qkv(seed, B, S, H, D=64, scale=1.0):
     return q * scale, k, v
 
 
-def jax_bound(q, k, v, dtype):
-    """The JAX package's max-free forward in interpret mode: (O, lse [BH, S])."""
+def rand_grad(seed, shape):
+    return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+
+
+def _jdt(dtype):
     import jax.numpy as jnp
+
+    return {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}[dtype]
+
+
+@contextlib.contextmanager
+def pallas_interpret():
+    """Run the JAX package's Pallas kernels through the interpreter (CPU)."""
     from jax.experimental import pallas as pl
+
+    with mock.patch.object(pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True)):
+        yield
+
+
+def jax_forward(q, k, v, dtype, stable):
+    """The JAX package's forward in interpret mode: (O, lse [BH, S])."""
+    import jax.numpy as jnp
 
     from da3slam_tpu.ops.flash_attention import _flash_forward
 
-    jdt = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}[dtype]
-    orig = pl.pallas_call
-    with mock.patch.object(pl, "pallas_call", functools.partial(orig, interpret=True)):
+    jdt = _jdt(dtype)
+    with pallas_interpret():
         o, res = _flash_forward(jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt),
-                                128, 128, stable=False)
+                                128, 128, stable=stable)
     S = q.shape[1]
     return np.asarray(o, np.float32), np.asarray(res[-1][:, :S, 0])
+
+
+def jax_bound(q, k, v, dtype):
+    """The JAX package's max-free forward in interpret mode: (O, lse [BH, S])."""
+    return jax_forward(q, k, v, dtype, stable=False)
+
+
+def jax_backward(q, k, v, g, dtype):
+    """(dq, dk, dv) from the JAX package's custom VJP (the Pallas dq and
+    dk/dv kernels) in interpret mode, under the bound forward."""
+    import jax
+    import jax.numpy as jnp
+
+    from da3slam_tpu.ops.flash_attention import flash_attention as jflash
+
+    jdt = _jdt(dtype)
+
+    def f(q, k, v):
+        return jflash.__wrapped__(q, k, v, block_q=128, block_k=128, stable=False)
+
+    with pallas_interpret():
+        _, vjp = jax.vjp(f, *(jnp.asarray(x, jdt) for x in (q, k, v)))
+        grads = vjp(jnp.asarray(g, jdt))
+    return [np.asarray(x, np.float32) for x in grads]
+
+
+def torch_inputs(dtype, *arrays, device="cpu"):
+    return [torch.from_numpy(x).to(device=device, dtype=dtype) for x in arrays]
 
 
 def port_bound(q, k, v, dtype):
@@ -108,12 +170,196 @@ class TestDispatch:
         with pytest.raises(ValueError, match="unsupported device"):
             flash_attention_bound(q, q, q)
 
+    @pytest.mark.parametrize("stable", [False, True])
+    def test_cpu_backward_runs_the_plain_versions(self, stable):
+        """On CPU tensors both directions of the Function are the plain
+        versions, bit for bit, and no kernel is counted."""
+        q, k, v = (torch.from_numpy(x).requires_grad_() for x in rand_qkv(26, 2, 70, 2))
+        g = torch.from_numpy(rand_grad(27, q.shape))
+        before = [f.launches for f in COUNTED]
+        flash_attention(q, k, v, stable=stable).backward(g)
+        assert [f.launches for f in COUNTED] == before
+        fwd = flash_attention_stable_reference if stable else flash_attention_bound_reference
+        o, lse = fwd(q.detach(), k.detach(), v.detach())
+        ref = flash_attention_backward_reference(q.detach(), k.detach(), v.detach(), o, lse, g)
+        for t, r in zip((q, k, v), ref):
+            torch.testing.assert_close(t.grad, r, rtol=0, atol=0)
+
+    def test_no_grad_keeps_no_graph(self):
+        q, k, v = (torch.from_numpy(x).requires_grad_() for x in rand_qkv(28, 1, 40, 2))
+        with torch.no_grad():
+            out = multi_head_attention(q, k, v)
+        assert out.grad_fn is None and not out.requires_grad
+
+
+class TestStablePlainMatchesJax:
+    # f32: same formula, same rounding points; the JAX kernel's online
+    # recurrence over 128-key blocks and the plain one over 16-key blocks
+    # differ by f32 rounding only (~1e-7 relative)
+    @pytest.mark.parametrize("S", [128, 300])
+    def test_f32(self, S):
+        q, k, v = rand_qkv(30, 2, S, 3)
+        o_j, lse_j = jax_forward(q, k, v, torch.float32, stable=True)
+        o_t, lse_t = (x.float().numpy() for x in flash_attention_stable(*torch_inputs(torch.float32, q, k, v)))
+        np.testing.assert_allclose(o_t, o_j, atol=2e-6)
+        np.testing.assert_allclose(lse_t, lse_j, atol=1e-5)
+
+    @pytest.mark.parametrize("S", [256, 300])
+    def test_bf16(self, S):
+        # p is rounded to bf16 relative to a 128-key block's running max in
+        # JAX and to a 16-key block's here, so a p may round the other way;
+        # the output is rounded to bf16 (1 ulp = 2^-8 relative).  The bound
+        # scales with |O| as the smoke's does (chip_smoke.BF16_REL_TOL): a
+        # fixed 2e-2 would pass a dropped key tile.
+        q, k, v = rand_qkv(31, 1, S, 2)
+        o_j, _ = jax_forward(q, k, v, torch.bfloat16, stable=True)
+        o_t, _ = flash_attention_stable(*torch_inputs(torch.bfloat16, q, k, v))
+        np.testing.assert_allclose(o_t.float().numpy(), o_j,
+                                   atol=chip_smoke.BF16_REL_TOL * np.abs(o_j).max())
+
+    def test_plain_runs_the_kernels_blocked_recurrence(self):
+        """The plain stable forward is the kernel's recurrence: in f64 (p not
+        rounded) it is exact softmax attention (1e-12), and in bf16 it matches
+        a key-block-by-key-block loop that rounds p against the running max
+        and rescales by exp2(m_prev − m_new), as the CUDA kernel does.  The
+        two differ in f32 summation order only; the bf16 output may then
+        round one ulp (2^-8·max|O|) the other way."""
+        q, k, v = rand_qkv(32, 1, 300, 2)
+        o64, lse64 = flash_attention_stable_reference(*torch_inputs(torch.float64, q, k, v))
+        qt, kt, vt = (torch.from_numpy(x).double().transpose(1, 2) for x in (q, k, v))
+        s = qt @ kt.transpose(-1, -2) * (LOG2E / 8.0)
+        ref = (torch.softmax(s * LN2, -1) @ vt).transpose(1, 2)
+        torch.testing.assert_close(o64, ref, rtol=0, atol=1e-12)
+        torch.testing.assert_close(lse64, torch.logsumexp(s * LN2, -1).reshape(2, 300) / LN2,
+                                   rtol=0, atol=1e-12)
+
+        qb, kb, vb = torch_inputs(torch.bfloat16, q, k, v)
+        o_t, lse_t = flash_attention_stable_reference(qb, kb, vb)
+        for h in range(2):
+            qs = (qb[0, :, h].float() * (LOG2E / 8.0)).bfloat16().float()
+            kf, vf = kb[0, :, h].float(), vb[0, :, h].float()
+            m = torch.full((300,), -1e30)
+            acc, den = torch.zeros(300, 64), torch.zeros(300)
+            for j0 in range(0, 300, STABLE_BLOCK_K):
+                sb = qs @ kf[j0:j0 + STABLE_BLOCK_K].T
+                m_new = torch.maximum(m, sb.amax(-1))
+                alpha = torch.exp2(m - m_new)
+                p = torch.exp2(sb - m_new[:, None]).bfloat16().float()
+                acc = alpha[:, None] * acc + p @ vf[j0:j0 + STABLE_BLOCK_K]
+                den = alpha * den + p.sum(-1)
+                m = m_new
+            o_loop = acc / den[:, None]
+            torch.testing.assert_close(o_t[0, :, h].float(), o_loop, rtol=0,
+                                       atol=2.0 ** -8 * o_loop.abs().max().item())
+            torch.testing.assert_close(lse_t[h], m + torch.log2(den), rtol=0, atol=1e-5)
+
+    def test_30x_scaled_q_stays_exact(self):
+        """The input where the bound forward gives zeros: the stable forward
+        is softmax attention.  lse ~ 350 here, so 5e-5 is a few f32 ulps."""
+        q, k, v = rand_qkv(23, 1, 128, 1, scale=30.0)
+        o_j, lse_j = jax_forward(q, k, v, torch.float32, stable=True)
+        o_t, lse_t = flash_attention_stable(*torch_inputs(torch.float32, q, k, v))
+        np.testing.assert_allclose(o_t.numpy(), o_j, atol=2e-6)
+        np.testing.assert_allclose(lse_t.numpy(), lse_j, atol=5e-5)
+        assert np.abs(o_t.numpy()).max() > 0.5
+        o_b, _ = flash_attention_bound(*torch_inputs(torch.float32, q, k, v))
+        assert (o_b == 0).all()
+
+
+class TestBackwardPlainMatchesJax:
+    @pytest.mark.parametrize("S,dtype", [(128, torch.float32), (300, torch.float32),
+                                         (256, torch.bfloat16)])
+    def test_matches_jax_vjp(self, S, dtype):
+        """f32: the same sums in another order, ≤ 1e-6 measured; 1e-5.  bf16:
+        dz, p and the outputs are rounded to bf16 at the same points, and a
+        value at a rounding boundary can go either way: one bf16 ulp of the
+        largest gradient, 2^-7·max|g|."""
+        q, k, v = rand_qkv(S, 2, S, 3)
+        g = rand_grad(S + 1, q.shape)
+        jg = jax_backward(q, k, v, g, dtype)
+        tq, tk, tv, tg = torch_inputs(dtype, q, k, v, g)
+        o, lse = flash_attention_bound_reference(tq, tk, tv)
+        tgrads = flash_attention_backward_reference(tq, tk, tv, o, lse, tg)
+        for name, a, b in zip("qkv", tgrads, jg):
+            tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7 * np.abs(b).max()
+            np.testing.assert_allclose(a.float().numpy(), b, atol=tol, err_msg=f"d{name}")
+
+    def test_one_backward_serves_both_forwards(self):
+        """lse is the same quantity under either forward (the JAX package's
+        own pin, tests/test_flash_attention.py: 2e-5)."""
+        q, k, v = torch_inputs(torch.float32, *rand_qkv(33, 1, 256, 2))
+        g = torch.from_numpy(rand_grad(34, q.shape))
+        grads = [flash_attention_backward_reference(q, k, v, *fwd(q, k, v), g)
+                 for fwd in (flash_attention_bound_reference, flash_attention_stable_reference)]
+        for a, b in zip(*grads):
+            torch.testing.assert_close(a, b, rtol=0, atol=2e-5)
+
+
+class TestDifferentiable:
+    @pytest.mark.parametrize("stable", [False, True])
+    def test_gradcheck_float64(self, stable):
+        rng = np.random.default_rng(35)
+        q, k, v = (torch.from_numpy(rng.normal(size=(1, 11, 2, 8))).requires_grad_()
+                   for _ in range(3))
+        assert torch.autograd.gradcheck(lambda *a: flash_attention(*a, stable=stable), (q, k, v))
+
+    def test_grads_through_multi_head_attention_match_jax(self):
+        """jax.grad of the JAX package's multi_head_attention (XLA softmax
+        attention on the CPU) against the port's (the plain bound forward and
+        backward): the same function in f32, 1e-5."""
+        import jax
+        import jax.numpy as jnp
+
+        from da3slam_tpu.ops.attention import multi_head_attention as jmha
+
+        q, k, v = rand_qkv(36, 2, 150, 2)
+        w = rand_grad(37, q.shape)
+        jg = jax.grad(lambda q, k, v: jnp.sum(jmha(q, k, v) * w), argnums=(0, 1, 2))(
+            *(jnp.asarray(x) for x in (q, k, v)))
+        tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+        (multi_head_attention(tq, tk, tv) * torch.from_numpy(w)).sum().backward()
+        for t, j in zip((tq, tk, tv), jg):
+            np.testing.assert_allclose(t.grad.numpy(), np.asarray(j), atol=1e-5)
+
+
+class TestDroppedTileBreaksTheSmokeBound:
+    """chip_smoke.py holds each kernel gradient to ``grad_bound`` of the
+    plain one; a kernel that skipped the ragged last key tile (dq) or q tile
+    (dk/dv) must break it.  The smoke checks the same on the card at its own
+    shapes."""
+
+    @pytest.mark.parametrize("dtype,shape", [(torch.float32, (2, 300, 3, 64)),
+                                             (torch.bfloat16, (1, 1301, 2, 64))])
+    def test_bound_catches_a_dropped_tile(self, dtype, shape):
+        q, k, v, g = torch_inputs(dtype, *rand_qkv(38, *shape[:3]), rand_grad(39, shape))
+        o, lse = flash_attention_bound_reference(q, k, v)
+        delta = attention_delta(o, g)
+        grads = (flash_attention_bwd_dq_reference(q, k, v, g, lse, delta),
+                 *flash_attention_bwd_dkv_reference(q, k, v, g, lse, delta))
+        errs = chip_smoke.dropped_tile_errors(q, k, v, g, lse, delta, grads)
+        for name, err, ref in zip("qkv", errs, grads):
+            assert err > chip_smoke.grad_bound(ref), f"d{name}: {err}"
+
 
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     return torch.device("cuda")
+
+
+STABLE_CARD_CASES = [
+    (torch.bfloat16, (3, 1301, 2, 64)),
+    (torch.bfloat16, (1, 777, 6, 64)),  # ragged last q and k tile
+    (torch.float32, (2, 300, 3, 64)),
+    (torch.float32, (1, 63, 1, 64)),  # shorter than one tile
+]
+BWD_CARD_CASES = [
+    (torch.float32, (2, 300, 3, 64)),
+    (torch.float32, (1, 63, 1, 64)),
+    (torch.float32, (4, 1301, 2, 64)),  # the training intra-view length
+    (torch.bfloat16, (1, 777, 6, 64)),
+]
 
 
 @pytest.mark.cuda
@@ -155,3 +401,69 @@ class TestKernelOnCard:
             flash_attention_bound(t, t, t)
         with pytest.raises(ValueError, match="head_dim"):
             multi_head_attention(*(torch.zeros(1, 8, 1, 128, device=card),) * 3)
+
+    @pytest.mark.parametrize("dtype,shape", STABLE_CARD_CASES)
+    def test_stable_kernel_matches_plain(self, card, dtype, shape):
+        gen = torch.Generator(device=card).manual_seed(1)
+        q, k, v = (torch.randn(shape, generator=gen, device=card).to(dtype) for _ in range(3))
+        before = flash_attention_stable.launches
+        o, lse = flash_attention_stable(q, k, v)
+        torch.cuda.synchronize()
+        assert flash_attention_stable.launches == before + 1
+        o_ref, lse_ref = flash_attention_stable_reference(q, k, v)
+        assert torch.isfinite(o).all()
+        assert (o.float() - o_ref.float()).abs().max().item() <= chip_smoke.fwd_bound(o_ref)
+        assert (lse - lse_ref).abs().max().item() <= chip_smoke.LSE_TOL
+
+    def test_stable_kernel_30x_scaled_q(self, card):
+        """Where the bound kernel gives zeros, the stable one matches its plain
+        version (lse 100-200: see chip_smoke.LSE_TOL_30X)."""
+        q, k, v = torch_inputs(torch.float32, *rand_qkv(23, 1, 300, 2, scale=30.0), device=card)
+        o, lse = flash_attention_stable(q, k, v)
+        o_ref, lse_ref = flash_attention_stable_reference(q, k, v)
+        assert (o - o_ref).abs().max().item() <= chip_smoke.fwd_bound(o_ref, q_scale=30.0)
+        assert (lse - lse_ref).abs().max().item() <= chip_smoke.LSE_TOL_30X
+        assert (flash_attention_bound(q, k, v)[0] == 0).all()
+
+    @pytest.mark.parametrize("dtype,shape", BWD_CARD_CASES)
+    def test_backward_kernels_match_plain(self, card, dtype, shape):
+        q, k, v = torch_inputs(dtype, *rand_qkv(40, *shape[:3]), device=card)
+        g = torch.from_numpy(rand_grad(41, shape)).to(card)
+        o, lse = flash_attention_bound(q, k, v)
+        before = (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches)
+        grads = flash_attention_backward(q, k, v, o, lse, g)
+        torch.cuda.synchronize()
+        assert (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches) == \
+            (before[0] + 1, before[1] + 1)
+        refs = flash_attention_backward_reference(q, k, v, o, lse, g)
+        for name, a, r in zip("qkv", grads, refs):
+            assert a.dtype == dtype and a.shape == r.shape
+            assert torch.isfinite(a).all()
+            err = (a.float() - r.float()).abs().max().item()
+            assert err <= chip_smoke.grad_bound(r), f"d{name}: {err}"
+
+    def test_multi_head_attention_is_differentiable_on_card(self, card):
+        """The repaired fault: the kernels' outputs had no grad_fn, so q, k
+        and v got no gradient on the card.  Now they do, and they match the
+        plain version's (the same Function on CPU tensors)."""
+        q, k, v = rand_qkv(42, 2, 300, 3)
+        w = rand_grad(43, q.shape)
+        grads = {}
+        for dev in ("cpu", card):
+            ts = [torch.from_numpy(x).to(dev).requires_grad_() for x in (q, k, v)]
+            before = [f.launches for f in COUNTED]
+            (multi_head_attention(*ts) * torch.from_numpy(w).to(dev)).sum().backward()
+            after = [f.launches - b for f, b in zip(COUNTED, before)]
+            assert after == ([0, 0, 0, 0] if dev == "cpu" else [1, 0, 1, 1])
+            assert all(t.grad is not None for t in ts)
+            grads[str(dev)] = [t.grad.cpu() for t in ts]
+        for a, r in zip(grads["cuda"], grads["cpu"]):
+            assert (a - r).abs().max().item() <= chip_smoke.grad_bound(r)
+
+    def test_no_grad_launches_no_backward(self, card):
+        q, k, v = (torch.zeros(1, 70, 2, 64, device=card, requires_grad=True) for _ in range(3))
+        before = [f.launches for f in COUNTED]
+        with torch.no_grad():
+            out = multi_head_attention(q, k, v)
+        assert out.grad_fn is None
+        assert [f.launches - b for f, b in zip(COUNTED, before)] == [1, 0, 0, 0]
