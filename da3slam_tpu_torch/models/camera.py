@@ -1,6 +1,6 @@
-"""Camera head: per-view pose (w2c) + pinhole intrinsics from camera tokens
-(counterpart of ``da3slam_tpu/models/camera.py``; ``pose_from_rays`` is not
-ported yet).
+"""Camera head: per-view pose (w2c) + pinhole intrinsics from camera tokens,
+and poses recovered from the DPT head's ray maps (counterpart of
+``da3slam_tpu/models/camera.py``).
 
 Extrinsics ``[N, 3, 4]`` are w2c, OpenCV convention, local to the chunk with
 the reference view at the identity; intrinsics ``[N, 3, 3]`` are zero-skew,
@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from da3slam_tpu_torch.core.geometry import pixel_grid
 from da3slam_tpu_torch.core.transforms import (
     highest_precision,
     quat_to_rotmat,
@@ -38,6 +39,70 @@ def init_camera_head(head: CameraHead, generator: torch.Generator) -> None:
         nn.init.trunc_normal_(lin.weight, std=std, a=-2 * std, b=2 * std, generator=generator)
         nn.init.zeros_(lin.bias)
     head.out.bias[0] = 1.0  # identity quaternion
+
+
+@highest_precision()
+def pose_from_rays(
+    rays: torch.Tensor, K: torch.Tensor, stride: int = 8, eps: float = 1e-6
+) -> torch.Tensor:
+    """Recover per-view w2c extrinsics ``[N, 3, 4]`` from predicted Plücker ray
+    maps ``rays [N, H, W, 6]`` and intrinsics ``K [N, 3, 3]``.
+
+    Every pixel predicts its viewing ray in the chunk frame as ``(d, m)``
+    with unit direction ``d`` and moment ``m = c × d`` (``c`` the camera
+    centre).  Then:
+
+      * centre: least squares over the rays,
+        ``Σ (I − d dᵀ) c = Σ d × m``  (a 3×3 solve per view)
+      * rotation: Kabsch between the canonical camera-frame pixel rays
+        ``K⁻¹ [u, v, 1]`` and the predicted world directions → R_c2w, with
+        the reflection fix (the last singular direction's sign set to
+        ``det(U Vᵀ)``).
+    """
+    N, H, W, _ = rays.shape
+    d = rays[:, ::stride, ::stride, 0:3].reshape(N, -1, 3)
+    m = rays[:, ::stride, ::stride, 3:6].reshape(N, -1, 3)
+    eye = torch.eye(3, dtype=rays.dtype, device=rays.device)
+
+    A = torch.sum(eye - d[..., :, None] * d[..., None, :], dim=1) + eps * eye  # [N, 3, 3]
+    b = torch.sum(torch.linalg.cross(d, m, dim=-1), dim=1)  # [N, 3]
+    c = torch.linalg.solve(A, b[..., None])[..., 0]
+
+    # canonical camera rays at the same strided pixels
+    pix = pixel_grid(H, W, rays.dtype, rays.device)[::stride, ::stride].reshape(-1, 3)  # [P, 3]
+    fx, fy = K[:, 0, 0], K[:, 1, 1]
+    cx, cy = K[:, 0, 2], K[:, 1, 2]
+    r = torch.stack([
+        (pix[None, :, 0] - cx[:, None]) / fx[:, None],
+        (pix[None, :, 1] - cy[:, None]) / fy[:, None],
+        torch.ones(N, pix.shape[0], dtype=rays.dtype, device=rays.device),
+    ], dim=-1)
+    r = r / torch.linalg.vector_norm(r, dim=-1, keepdim=True).clamp_min(eps)
+
+    # Kabsch per view: world dirs = R_c2w @ cam dirs
+    Sigma = torch.einsum("npi,npj->nij", d, r)
+    U, _, Vh = torch.linalg.svd(Sigma)
+    det = torch.linalg.det(U @ Vh)
+    D = torch.stack([torch.ones_like(det), torch.ones_like(det), det], dim=-1)
+    R_w2c = ((U * D[:, None, :]) @ Vh).transpose(-1, -2)
+    t = -(R_w2c @ c[..., None])[..., 0]
+    return torch.cat([R_w2c, t[..., None]], dim=-1)
+
+
+def rays_from_pose(
+    extrinsics: torch.Tensor, K: torch.Tensor, hw: tuple[int, int]
+) -> torch.Tensor:
+    """Inverse of :func:`pose_from_rays`, for testing and supervision: the
+    exact Plücker ray map ``[N, H, W, 6]`` of given w2c poses."""
+    H, W = hw
+    pix = pixel_grid(H, W, extrinsics.dtype, extrinsics.device)  # [H, W, 3]
+    Kinv_ray = torch.einsum("nij,hwj->nhwi", torch.linalg.inv(K), pix)
+    c2w = se3_inverse(extrinsics)
+    d = torch.einsum("nij,nhwj->nhwi", c2w[:, :3, :3], Kinv_ray)
+    d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True).clamp_min(1e-8)
+    c = c2w[:, :3, 3]
+    m = torch.linalg.cross(c[:, None, None].expand_as(d), d, dim=-1)
+    return torch.cat([d, m], dim=-1)
 
 
 def ref_view_index(n_views: int, strategy: str) -> int:

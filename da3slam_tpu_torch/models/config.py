@@ -22,7 +22,8 @@ class ModelConfig:
     # the others attend within each view
     cross_view_interval: int = 2
     layerscale_init: float = 1e-5
-    # feed-forward flavour: "mlp" (fc1/gelu/fc2); "swiglu" is not ported yet
+    # feed-forward flavour: "mlp" (fc1/gelu/fc2) or "swiglu" (DINOv2-giant's
+    # SwiGLUFFN: w12 → silu(x1)·x2 → w3)
     mlp_type: str = "mlp"
     remat: bool = False
     # DPT head

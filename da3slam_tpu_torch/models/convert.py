@@ -81,8 +81,6 @@ def convert(params: Any) -> dict[str, torch.Tensor]:
     sd["pos_embed"] = _t(np.concatenate([np.zeros((1, 1, D), np.float32),
                                          pos.reshape(1, G * G, D)], axis=1))
     for i, blk in enumerate(enc["blocks"]):
-        if "wg" in blk["mlp"]:
-            raise NotImplementedError("SwiGLU blocks are not ported yet")
         b = f"blocks.{i}"
         sd[f"{b}.norm1.weight"] = _t(blk["ln1"]["scale"])
         sd[f"{b}.norm1.bias"] = _t(blk["ln1"]["bias"])
@@ -93,10 +91,17 @@ def convert(params: Any) -> dict[str, torch.Tensor]:
         sd[f"{b}.ls1.gamma"] = _t(blk["ls1"])
         sd[f"{b}.norm2.weight"] = _t(blk["ln2"]["scale"])
         sd[f"{b}.norm2.bias"] = _t(blk["ln2"]["bias"])
-        sd[f"{b}.mlp.fc1.weight"] = _t(blk["mlp"]["w1"], (1, 0))
-        sd[f"{b}.mlp.fc1.bias"] = _t(blk["mlp"]["b1"])
-        sd[f"{b}.mlp.fc2.weight"] = _t(blk["mlp"]["w2"], (1, 0))
-        sd[f"{b}.mlp.fc2.bias"] = _t(blk["mlp"]["b2"])
+        mlp = blk["mlp"]
+        if "wg" in mlp:  # SwiGLU (giant tier): gate | value re-fused into w12
+            sd[f"{b}.mlp.w12.weight"] = torch.cat([_t(mlp["wg"], (1, 0)), _t(mlp["wv"], (1, 0))])
+            sd[f"{b}.mlp.w12.bias"] = torch.cat([_t(mlp["bg"]), _t(mlp["bv"])])
+            sd[f"{b}.mlp.w3.weight"] = _t(mlp["w3"], (1, 0))
+            sd[f"{b}.mlp.w3.bias"] = _t(mlp["b3"])
+        else:
+            sd[f"{b}.mlp.fc1.weight"] = _t(mlp["w1"], (1, 0))
+            sd[f"{b}.mlp.fc1.bias"] = _t(mlp["b1"])
+            sd[f"{b}.mlp.fc2.weight"] = _t(mlp["w2"], (1, 0))
+            sd[f"{b}.mlp.fc2.bias"] = _t(mlp["b2"])
         sd[f"{b}.ls2.gamma"] = _t(blk["ls2"])
 
     for path, base in _dpt_name_map():

@@ -5,7 +5,7 @@
 with ``forward_fn`` underneath.  The network is one ``nn.Module`` whose
 state-dict names are the DA3/DINOv2 ones (``models/convert.py``).  The
 working dtype is bf16 on CUDA and f32 on the CPU.  Checkpoint directories,
-the nested tier, ``use_ray_pose`` and export are not ported yet.
+the nested tier and export are not ported yet.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from da3slam_tpu_torch.core.transforms import se3_compose, se3_inverse
 from da3slam_tpu_torch.models import camera, dpt, vit
 from da3slam_tpu_torch.models.config import ModelConfig, get_preset
 from da3slam_tpu_torch.ops.resize import (
@@ -65,14 +66,22 @@ def forward_fn(
     cfg: ModelConfig,
     ref_idx: int = 0,
     dtype=torch.float32,
+    use_ray_pose: bool = False,
 ) -> dict[str, torch.Tensor]:
-    """Normalised images ``[N, H, W, 3]`` → prediction dict (f32 outputs)."""
+    """Normalised images ``[N, H, W, 3]`` → prediction dict (f32 outputs).
+
+    ``use_ray_pose`` recovers the extrinsics from the DPT head's dense Plücker
+    ray maps instead of the camera-token head."""
     N, H, W, _ = images.shape
     taps, final, grid = vit.encode(net, images, cfg, dtype)
     depth, conf, rays = dpt.apply_dpt(net.depth_head, taps, grid, (H, W), cfg)
     extrinsics, intrinsics = camera.apply_camera_head(
         net.camera_head, final[:, 0, :], (H, W), ref_idx
     )
+    if use_ray_pose:
+        ext_rays = camera.pose_from_rays(rays, intrinsics)
+        # re-anchor so the reference view is the identity, like the head path
+        extrinsics = se3_compose(ext_rays, se3_inverse(ext_rays[ref_idx])[None])
     # per-frame retrieval descriptor: L2-normalised mean-pooled patch tokens
     pooled = final[:, vit.num_prefix_tokens(cfg):, :].float().mean(dim=1)
     frame_desc = pooled / torch.linalg.vector_norm(pooled, dim=-1, keepdim=True).clamp_min(1e-12)
@@ -116,13 +125,15 @@ class DepthAnything3:
         process_res: int = 504,
         process_res_method: str = "upper_bound_resize",
         ref_view_strategy: str = "first",
+        use_ray_pose: bool = False,
         extrinsics: np.ndarray | None = None,
         align_to_input_ext_scale: bool = False,
         keep_on_device: bool = False,
     ) -> Prediction:
         """Reference-contract inference over one chunk of views.
 
-        ``keep_on_device=True`` returns every field as a tensor on the
+        ``use_ray_pose=True`` recovers poses from the dense ray maps instead
+        of the camera-token head.  ``keep_on_device=True`` returns every field as a tensor on the
         model's device and returns without waiting for the forward; otherwise
         the fields are fetched to numpy.
         """
@@ -142,7 +153,7 @@ class DepthAnything3:
         norm = resize_normalize(raw, (th, tw))
 
         ref_idx = camera.ref_view_index(raw.shape[0], ref_view_strategy)
-        out = forward_fn(self.net, norm, self.cfg, ref_idx, self.dtype)
+        out = forward_fn(self.net, norm, self.cfg, ref_idx, self.dtype, use_ray_pose)
 
         ext = out["extrinsics"]
         depth = out["depth"]

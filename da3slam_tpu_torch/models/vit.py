@@ -8,8 +8,9 @@ of all views' tokens.
 
 Parameters live in ``nn.Module``s named after the DINOv2 state dict
 (``blocks.{i}.attn.qkv``, ``blocks.{i}.ls1.gamma``, ...), kept in f32; each
-op casts them to the activation dtype, as the JAX package does.  Only the
-plain MLP is ported (SwiGLU and W8A8 are not).
+op casts them to the activation dtype, as the JAX package does.  The
+feed-forward is the plain MLP or, for the giant tier, DINOv2's SwiGLU; W8A8
+is not ported.
 """
 
 from __future__ import annotations
@@ -45,6 +46,16 @@ class Mlp(nn.Module):
         self.fc2 = nn.Linear(hidden, out or dim)
 
 
+class SwiGLU(nn.Module):
+    """DINOv2-giant's SwiGLUFFN: ``w3(silu(x1)·x2)`` with ``[x1 | x2] = w12(x)``,
+    gate and value fused in one tensor as the released checkpoints store them."""
+
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.w12 = nn.Linear(dim, 2 * hidden)
+        self.w3 = nn.Linear(hidden, dim)
+
+
 class Block(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -53,7 +64,7 @@ class Block(nn.Module):
         self.attn = Attention(D)
         self.ls1 = LayerScale(D)
         self.norm2 = nn.LayerNorm(D, eps=LN_EPS)
-        self.mlp = Mlp(D, cfg.mlp_hidden)
+        self.mlp = (SwiGLU if cfg.mlp_type == "swiglu" else Mlp)(D, cfg.mlp_hidden)
         self.ls2 = LayerScale(D)
 
 
@@ -70,8 +81,8 @@ class ViTEncoder(nn.Module):
 
     def __init__(self, cfg: ModelConfig, base_grid: int = 37):
         super().__init__()
-        if cfg.mlp_type != "mlp":
-            raise NotImplementedError(f"mlp_type {cfg.mlp_type!r} is not ported yet")
+        if cfg.mlp_type not in ("mlp", "swiglu"):
+            raise ValueError(f"unknown mlp_type {cfg.mlp_type!r}")
         D = cfg.embed_dim
         self.base_grid = base_grid
         self.patch_embed = PatchEmbed(cfg)
@@ -102,7 +113,7 @@ def init_encoder(enc: ViTEncoder, cfg: ModelConfig, generator: torch.Generator) 
         nn.init.ones_(ln.weight)
         nn.init.zeros_(ln.bias)
     for blk in enc.blocks:
-        for lin in (blk.mlp.fc1, blk.mlp.fc2, blk.attn.qkv, blk.attn.proj):
+        for lin in (*blk.mlp.children(), blk.attn.qkv, blk.attn.proj):
             _trunc_normal_(lin.weight, 0.02, generator)
             nn.init.zeros_(lin.bias)
         blk.ls1.gamma.fill_(cfg.layerscale_init)
@@ -130,7 +141,10 @@ def _attention(attn: Attention, x: torch.Tensor, num_heads: int) -> torch.Tensor
     return linear(attn.proj, out)
 
 
-def _mlp(mlp: Mlp, x: torch.Tensor) -> torch.Tensor:
+def _mlp(mlp: Mlp | SwiGLU, x: torch.Tensor) -> torch.Tensor:
+    if isinstance(mlp, SwiGLU):
+        gate, value = linear(mlp.w12, x).chunk(2, dim=-1)
+        return linear(mlp.w3, F.silu(gate) * value)
     return linear(mlp.fc2, F.gelu(linear(mlp.fc1, x), approximate="tanh"))
 
 

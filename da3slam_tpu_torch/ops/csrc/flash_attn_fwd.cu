@@ -102,34 +102,6 @@ key_norm_max_kernel(const T* __restrict__ k, float* __restrict__ kmax, int S, in
   }
 }
 
-// s = q'_i . k_j in f32 (four partial sums), k_j a row of a shared-memory tile
-__device__ __forceinline__ float score(const float* qr, const float* k_row) {
-  const float4* kr = reinterpret_cast<const float4*>(k_row);
-  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-#pragma unroll
-  for (int d4 = 0; d4 < kHeadDim / 4; ++d4) {
-    const float4 kk = kr[d4];
-    s0 = fmaf(qr[4 * d4 + 0], kk.x, s0);
-    s1 = fmaf(qr[4 * d4 + 1], kk.y, s1);
-    s2 = fmaf(qr[4 * d4 + 2], kk.z, s2);
-    s3 = fmaf(qr[4 * d4 + 3], kk.w, s3);
-  }
-  return (s0 + s1) + (s2 + s3);
-}
-
-// acc += p * v_j, v_j a row of a shared-memory tile
-__device__ __forceinline__ void accumulate(float* acc, float p, const float* v_row) {
-  const float4* vr = reinterpret_cast<const float4*>(v_row);
-#pragma unroll
-  for (int d4 = 0; d4 < kHeadDim / 4; ++d4) {
-    const float4 vv = vr[d4];
-    acc[4 * d4 + 0] = fmaf(p, vv.x, acc[4 * d4 + 0]);
-    acc[4 * d4 + 1] = fmaf(p, vv.y, acc[4 * d4 + 1]);
-    acc[4 * d4 + 2] = fmaf(p, vv.z, acc[4 * d4 + 2]);
-    acc[4 * d4 + 3] = fmaf(p, vv.w, acc[4 * d4 + 3]);
-  }
-}
-
 // kStable = false: the bound mode (m from kmax, fixed).  kStable = true: the
 // online softmax (kmax unused, m the running max).
 template <typename T, bool kStable>

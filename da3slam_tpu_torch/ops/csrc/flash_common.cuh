@@ -1,4 +1,5 @@
-// Helpers shared by the flash-attention kernels (flash_attn_*.cu).
+// Helpers shared by the flash-attention kernels (flash_attn_*.cu,
+// flash_probe_fwd.cu) and, for the type conversions, by conv3x3.cu.
 //
 // T is the tensors' element type: __nv_bfloat16 (the model's working type on
 // the card) or float (training and the f32 parity runs).  Every kernel does
@@ -110,6 +111,34 @@ __device__ __forceinline__ void stage_tile(float (*tile)[kHeadDim], const T* bas
     for (int i = 0; i < kVec; i += 4) {
       *reinterpret_cast<float4*>(&tile[j][c + i]) = make_float4(x[i], x[i + 1], x[i + 2], x[i + 3]);
     }
+  }
+}
+
+// s = q'_i . k_j in f32 (four partial sums), k_j a row of a shared-memory tile
+__device__ __forceinline__ float score(const float* qr, const float* k_row) {
+  const float4* kr = reinterpret_cast<const float4*>(k_row);
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+#pragma unroll
+  for (int d4 = 0; d4 < kHeadDim / 4; ++d4) {
+    const float4 kk = kr[d4];
+    s0 = fmaf(qr[4 * d4 + 0], kk.x, s0);
+    s1 = fmaf(qr[4 * d4 + 1], kk.y, s1);
+    s2 = fmaf(qr[4 * d4 + 2], kk.z, s2);
+    s3 = fmaf(qr[4 * d4 + 3], kk.w, s3);
+  }
+  return (s0 + s1) + (s2 + s3);
+}
+
+// acc += p * v_j, v_j a row of a shared-memory tile
+__device__ __forceinline__ void accumulate(float* acc, float p, const float* v_row) {
+  const float4* vr = reinterpret_cast<const float4*>(v_row);
+#pragma unroll
+  for (int d4 = 0; d4 < kHeadDim / 4; ++d4) {
+    const float4 vv = vr[d4];
+    acc[4 * d4 + 0] = fmaf(p, vv.x, acc[4 * d4 + 0]);
+    acc[4 * d4 + 1] = fmaf(p, vv.y, acc[4 * d4 + 1]);
+    acc[4 * d4 + 2] = fmaf(p, vv.z, acc[4 * d4 + 2]);
+    acc[4 * d4 + 3] = fmaf(p, vv.w, acc[4 * d4 + 3]);
   }
 }
 

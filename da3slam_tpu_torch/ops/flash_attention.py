@@ -42,7 +42,7 @@ STABLE_BLOCK_K = 16  # keys per online-softmax update in the stable kernel (kSub
 _CSRC = Path(__file__).parent / "csrc"
 _HEADERS = ("flash_common.cuh",)
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "da3slam_tpu_torch"
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # source -> {C entry point: argtypes}
 _SOURCES = {
@@ -53,6 +53,15 @@ _SOURCES = {
     "flash_attn_bwd.cu": {
         "flash_attn_bwd_dq": [_P] * 7 + [_I] * 5 + [_F, _F, _P],
         "flash_attn_bwd_dkv": [_P] * 8 + [_I] * 5 + [_F, _F, _P],
+    },
+    # the probe forwards (ops/flash_probes.py) and the 3x3 conv (ops/conv3x3.py)
+    "flash_probe_fwd.cu": {
+        "flash_probe_nomax": [_P] * 4 + [_I] * 3 + [_P],
+        "flash_probe_bisect": [_P] * 6 + [_I] * 5 + [_P],
+        "flash_probe_lab": [_P] * 4 + [_I] * 6 + [_F, _P],
+    },
+    "conv3x3.cu": {
+        "conv3x3_fwd": [_P] * 4 + [_I] * 7 + [_P],
     },
 }
 
@@ -222,7 +231,7 @@ def _nvcc() -> str:
     exe = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not Path(exe).exists():
         raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): cannot build "
-                           "the flash-attention kernels")
+                           "the CUDA kernels")
     return exe
 
 
@@ -296,8 +305,8 @@ def _check_cuda_inputs(q: torch.Tensor, *others: torch.Tensor) -> None:
         raise ValueError(f"expected equal [B, S, H, D] shapes, got {[tuple(t.shape) for t in ts]}")
     if q.shape[-1] != HEAD_DIM:
         raise ValueError(f"the kernels are compiled for head_dim {HEAD_DIM}, got {q.shape[-1]}")
-    if q.dtype not in _DTYPE_CODES or any(t.dtype != q.dtype for t in ts):
-        raise ValueError(f"tensors must share one dtype of {list(_DTYPE_CODES)}, got "
+    if q.dtype not in DTYPE_CODES or any(t.dtype != q.dtype for t in ts):
+        raise ValueError(f"tensors must share one dtype of {list(DTYPE_CODES)}, got "
                          f"{[t.dtype for t in ts]}")
     for t in ts:
         if not t.is_contiguous() or t.data_ptr() % 16:
@@ -317,7 +326,7 @@ def _check_rows(q: torch.Tensor, *rows: torch.Tensor) -> None:
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _launch(name: str, q: torch.Tensor, *args) -> None:
+def launch_kernel(name: str, q: torch.Tensor, *args) -> None:
     fn = build_kernel()[name]
     with torch.cuda.device(q.device):
         rc = fn(*args, torch.cuda.current_stream(q.device).cuda_stream)
@@ -336,8 +345,9 @@ def flash_attention_bound(
     o = torch.empty_like(q)
     lse = torch.empty(B * H, S, dtype=torch.float32, device=q.device)
     kmax = torch.empty(B * H, dtype=torch.float32, device=q.device)
-    _launch("flash_attn_bound_fwd", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), kmax.data_ptr(), B, S, H, D, _DTYPE_CODES[q.dtype], _scale(D))
+    launch_kernel("flash_attn_bound_fwd", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  o.data_ptr(), lse.data_ptr(), kmax.data_ptr(), B, S, H, D,
+                  DTYPE_CODES[q.dtype], _scale(D))
     flash_attention_bound.launches += 1
     return o, lse
 
@@ -352,8 +362,8 @@ def flash_attention_stable(
     B, S, H, D = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(B * H, S, dtype=torch.float32, device=q.device)
-    _launch("flash_attn_stable_fwd", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), B, S, H, D, _DTYPE_CODES[q.dtype], _scale(D))
+    launch_kernel("flash_attn_stable_fwd", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  o.data_ptr(), lse.data_ptr(), B, S, H, D, DTYPE_CODES[q.dtype], _scale(D))
     flash_attention_stable.launches += 1
     return o, lse
 
@@ -366,9 +376,9 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta) -> torch.Tensor:
     _check_rows(q, lse, delta)
     B, S, H, D = q.shape
     dq = torch.empty_like(q)
-    _launch("flash_attn_bwd_dq", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, S, H, D,
-            _DTYPE_CODES[q.dtype], _scale(D), 1.0 / D ** 0.5)
+    launch_kernel("flash_attn_bwd_dq", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, S, H, D,
+                  DTYPE_CODES[q.dtype], _scale(D), 1.0 / D ** 0.5)
     flash_attention_bwd_dq.launches += 1
     return dq
 
@@ -382,9 +392,9 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta) -> tuple[torch.Tensor, torc
     B, S, H, D = q.shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _launch("flash_attn_bwd_dkv", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, H, D,
-            _DTYPE_CODES[q.dtype], _scale(D), LN2)
+    launch_kernel("flash_attn_bwd_dkv", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                  B, S, H, D, DTYPE_CODES[q.dtype], _scale(D), LN2)
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 

@@ -3,11 +3,12 @@
 
   1. depth scale: confidence-gated median ratio on the overlap frame pair
   2. registration between the overlap frames' camera-coordinate clouds:
-     projective ICP (``icp``) or closed-form weighted Umeyama (``umeyama``)
+     projective ICP (``icp``), confidence-weighted Huber IRLS over pixelwise
+     correspondences (``irls``) or closed-form weighted Umeyama (``umeyama``)
   3. anchoring: the current chunk's anchor pose from the previous overlap pose
   4. chaining: every frame's global w2c in one batched compose
 
-All of it runs on the inputs' device with no host synchronisation.
+All of it runs on the inputs' device and reads nothing back to the host.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from da3slam_tpu_torch.core.transforms import (
     sim3_inverse,
 )
 from da3slam_tpu_torch.ops.icp import icp_point_to_point
-from da3slam_tpu_torch.ops.registration import weighted_umeyama
+from da3slam_tpu_torch.ops.registration import irls_sim3, weighted_umeyama
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,11 +40,22 @@ class AlignmentConfig:
     icp_max_iterations: int = 12
     # source-cloud pixel stride (the target map stays full resolution)
     icp_stride: int = 4
-    method: str = "icp"  # "icp" | "umeyama" ("irls" is not ported yet)
-    irls_delta: float = 0.1
+    method: str = "icp"  # "icp" | "irls" | "umeyama"
+    irls_delta: float = 0.1  # configs/config1.yaml IRLS block
     irls_max_iters: int = 5
+    # convergence early exit (configs/config1.yaml IRLS.tol); None = fixed count
     irls_tol: float | None = None
     with_scale: bool = False  # SE(3)+depth-prescale (solver path) vs full Sim(3)
+
+    @classmethod
+    def from_config(cls, config: dict) -> "AlignmentConfig":
+        """From a loaded YAML config: the ``Align`` block's keys are the
+        fields' names (unknown keys are rejected); the ``IRLS`` block's
+        ``delta`` / ``max_iters`` / ``tol`` fill the ``irls_*`` fields that
+        ``Align`` leaves unset."""
+        fields = {f"irls_{k}": v for k, v in (config.get("IRLS") or {}).items()}
+        fields.update(config.get("Align") or {})
+        return cls(**fields)
 
 
 class ChunkAlignment(NamedTuple):
@@ -127,7 +139,17 @@ def align_chunk_single_overlap(
         fitness = torch.ones((), device=cur_depth.device)
         rmse = torch.zeros((), device=cur_depth.device)
     elif config.method == "irls":
-        raise NotImplementedError("alignment method 'irls' is not ported yet")
+        # pixelwise correspondence (the same grid, both maps strided alike)
+        w = torch.sqrt(prev_conf[::st, ::st].reshape(-1)
+                       * cur_anchor_conf[::st, ::st].reshape(-1))
+        w = w * src_valid * tgt_valid[::st, ::st].reshape(-1)
+        res = irls_sim3(
+            src_pts, tgt_map[::st, ::st].reshape(-1, 3), conf=w,
+            delta=config.irls_delta, max_iters=config.irls_max_iters,
+            with_scale=config.with_scale, tol=config.irls_tol,
+        )
+        T, rmse = res.transform, res.rmse
+        fitness = torch.ones((), device=cur_depth.device)
     else:
         raise ValueError(f"unknown alignment method {config.method!r}")
 

@@ -59,7 +59,7 @@ class SLAMSolver:
         self.results: List[Dict] = []  # per-chunk outputs incl. extrinsics_global
         self.prev_chunk_prediction: Optional[Dict] = None
         self.prev_overlap_aligned_3x4: Optional[torch.Tensor] = None
-        self.align_config = AlignmentConfig(**dict(config.get("Align", {}) or {}))
+        self.align_config = AlignmentConfig.from_config(config)
 
         self.model = model if model is not None else self._load_model()
         if self.prefetch is None:
@@ -99,6 +99,10 @@ class SLAMSolver:
         kwargs = {"keep_on_device": True} if self.device_resident else {}
         pred = self.model.inference(image=image, process_res_method="upper_bound_resize",
                                     **kwargs)
+        if self._prefetcher is not None:
+            # this chunk's forward is queued (device-resident mode) or done:
+            # start the next chunk's image upload now
+            self._prefetcher.stage_next()
         dense = (lambda a: a) if self.device_resident else np.asarray
         out = {
             "chunk_idx": self.chunk_count,
@@ -271,8 +275,17 @@ class SLAMSolver:
               f"(chunk_size={self.chunk_size}, overlap={self.overlap_size})")
         if self.prefetch:
             from da3slam_tpu_torch.inout.prefetch import ImagePrefetcher
+            from da3slam_tpu_torch.slam.chunks import make_chunk_indices
 
-            self._prefetcher = ImagePrefetcher(image_paths, lookahead=2 * self.chunk_size)
+            # the chunk partition is known upfront (steady windows, then the
+            # re-anchored tail), so the prefetcher can stage each chunk's
+            # upload ahead of its dispatch
+            stage = [image_paths[a:b] for a, b in
+                     make_chunk_indices(len(image_paths), self.chunk_size, self.overlap_size)]
+            self._prefetcher = ImagePrefetcher(
+                image_paths, lookahead=2 * self.chunk_size, stage_chunks=stage,
+                device=self.model.device,
+            )
         try:
             for img_path in image_paths:
                 self.process_frame(img_path)

@@ -1,5 +1,5 @@
 """Per-stage wall-time accumulation (counterpart of
-``da3slam_tpu/utils/profiling.py:StageTimer``).
+``da3slam_tpu/utils/profiling.py:StageTimer``) and a kernel timer.
 
 CUDA work is asynchronous: a host clock around it measures the enqueue.
 ``StageTimer(sync=True)`` synchronises the device at the end of each stage so
@@ -9,10 +9,33 @@ the stage's time includes its device work.
 from __future__ import annotations
 
 import contextlib
+import statistics
 import time
 from collections import defaultdict
 
 import torch
+
+
+def time_ms(fn, device: torch.device | str, reps: int = 5) -> float:
+    """Median time of ``fn()`` in ms over ``reps`` runs, after one warm-up:
+    CUDA events on a CUDA device, the host clock on the CPU."""
+    on_cuda = torch.device(device).type == "cuda"
+    fn()
+    times = []
+    for _ in range(reps):
+        if on_cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
 
 
 class StageTimer:

@@ -25,7 +25,7 @@ print(len(names), bad)
 def test_no_module_imports_jax_or_the_jax_package():
     out = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=ROOT, capture_output=True,
                          text=True, timeout=120, check=True).stdout.split()
-    assert int(out[0]) >= 25  # every module of the slice was imported
+    assert int(out[0]) >= 42  # every module of the port was imported
     assert out[1:] == ["[]"]
 
 

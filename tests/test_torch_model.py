@@ -68,7 +68,7 @@ class TestConvert:
         assert set(fresh.state_dict()) == set(sd)
         fresh.load_state_dict(sd, strict=True)
 
-    @pytest.mark.parametrize("tier", ["small", "base", "large"])
+    @pytest.mark.parametrize("tier", ["small", "base", "large", "giant"])
     def test_names_and_shapes_match_published_schema(self, tier):
         """The module names are the released DINOv2/DPT ones
         (tests/fixtures/torch_schema_*.json, written without this repo's
@@ -82,6 +82,128 @@ class TestConvert:
         assert sorted(set(schema["keys"]) - set(sd)) == ["mask_token"]
         assert {k: s for k, s in sd.items() if k in schema["keys"]} == \
             {k: s for k, s in schema["keys"].items() if k in sd}
+
+
+SWIGLU = dict(mlp_type="swiglu")
+
+
+@pytest.fixture(scope="module")
+def jparams_swiglu():
+    cfg = jget_preset("tiny").with_overrides(**SWIGLU)
+    return jax.tree.map(np.asarray, jinit(jax.random.PRNGKey(0), cfg))
+
+
+class TestSwiGLU:
+    """The giant tier's feed-forward: ``w12`` (gate | value fused) → silu·value
+    → ``w3``, on the tiny preset with ``mlp_type="swiglu"``."""
+
+    def test_convert_equals_export_torch_style(self, jparams_swiglu):
+        sd = convert(jparams_swiglu)
+        ref = export_torch_style(jparams_swiglu)
+        assert set(sd) == set(ref) and "blocks.0.mlp.w12.weight" in sd
+        for k, v in ref.items():
+            np.testing.assert_array_equal(sd[k].numpy(), v, err_msg=k)
+        fresh = DA3Net(CFG.with_overrides(**SWIGLU))
+        assert set(fresh.state_dict()) == set(sd)
+        fresh.load_state_dict(sd, strict=True)
+
+    def test_encode_matches_jax(self, jparams_swiglu):
+        cfg = CFG.with_overrides(**SWIGLU)
+        net = DA3Net(cfg)
+        net.load_state_dict(convert(jparams_swiglu), strict=True)
+        x = normalized_images(5)
+        taps, final, _ = jvit.encode(jparams_swiglu["encoder"], jnp.asarray(x),
+                                     jget_preset("tiny").with_overrides(**SWIGLU))
+        with torch.no_grad():
+            t_taps, t_final, _ = vit.encode(net, torch.from_numpy(x), cfg)
+        for a, b in zip(t_taps, taps):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
+        np.testing.assert_allclose(t_final.numpy(), np.asarray(final), atol=1e-5)
+
+    def test_reproduces_golden(self, jparams_swiglu):
+        """tests/golden/tiny_swiglu_seed0.npz through the converted weights
+        (1e-4 as for the plain-MLP golden file)."""
+        g = np.load("tests/golden/tiny_swiglu_seed0.npz")
+        net = DA3Net(CFG.with_overrides(**SWIGLU))
+        net.load_state_dict(convert(jparams_swiglu), strict=True)
+        pred = DepthAnything3(CFG.with_overrides(**SWIGLU), net).inference(
+            image=g["images"], process_res=70)
+        np.testing.assert_allclose(pred.depth[:, ::4, ::4], g["depth"], atol=1e-4, rtol=1e-4)
+        np.testing.assert_allclose(pred.conf[:, ::4, ::4], g["conf"], atol=1e-4, rtol=1e-4)
+        np.testing.assert_allclose(pred.extrinsics, g["extrinsics"], atol=1e-5)
+
+    def test_random_init_covers_swiglu_and_unknown_type_raises(self):
+        from da3slam_tpu_torch.models.da3 import init_params
+
+        net = init_params(CFG.with_overrides(**SWIGLU), seed=0)
+        w12 = net.blocks[0].mlp.w12
+        assert w12.weight.shape == (2 * CFG.with_overrides(**SWIGLU).mlp_hidden, CFG.embed_dim)
+        assert 0 < w12.weight.std() < 0.03 and (w12.bias == 0).all()
+        with pytest.raises(ValueError, match="mlp_type"):
+            DA3Net(CFG.with_overrides(mlp_type="geglu"))
+
+
+class TestRayPose:
+    @staticmethod
+    def poses(n=3, seed=4):
+        rng = np.random.default_rng(seed)
+        R = np.linalg.qr(rng.normal(size=(n, 3, 3)))[0]
+        R = R * np.sign(np.linalg.det(R))[:, None, None]
+        E = np.concatenate([R, rng.normal(size=(n, 3, 1))], -1).astype(np.float32)
+        K = np.tile(np.array([[60.0, 0, 35.0], [0, 55.0, 28.0], [0, 0, 1]], np.float32), (n, 1, 1))
+        K[:, 0, 0] += np.arange(n)
+        return E, K
+
+    def test_rays_from_pose_matches_jax(self):
+        E, K = self.poses()
+        t_rays = camera.rays_from_pose(torch.from_numpy(E), torch.from_numpy(K), (56, 70))
+        j_rays = jcam.rays_from_pose(jnp.asarray(E), jnp.asarray(K), (56, 70))
+        np.testing.assert_allclose(t_rays.numpy(), np.asarray(j_rays), atol=1e-5)
+
+    @pytest.mark.parametrize("stride", [8, 3])
+    def test_pose_from_rays_round_trip_and_jax(self, stride):
+        """Exact rays give the pose back (1e-4: a least-squares solve and a
+        3x3 SVD over ~60-450 f32 rays), and noisy rays give JAX's pose (1e-4:
+        both reduce the same sums in another order)."""
+        E, K = self.poses()
+        rays = camera.rays_from_pose(torch.from_numpy(E), torch.from_numpy(K), (56, 70))
+        back = camera.pose_from_rays(rays, torch.from_numpy(K), stride=stride)
+        np.testing.assert_allclose(back.numpy(), E, atol=1e-4)
+        noisy = rays.numpy() + np.random.default_rng(6).normal(
+            scale=0.05, size=tuple(rays.shape)).astype(np.float32)
+        t_out = camera.pose_from_rays(torch.from_numpy(noisy), torch.from_numpy(K), stride=stride)
+        j_out = jcam.pose_from_rays(jnp.asarray(noisy), jnp.asarray(K), stride=stride)
+        np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out), atol=1e-4)
+        R = t_out[:, :, :3].numpy()
+        np.testing.assert_allclose(np.linalg.det(R), 1.0, atol=1e-5)
+
+    def test_reflection_fix_matches_jax(self):
+        """Ray directions mirrored in x have a reflection as their best
+        orthogonal fit; the sign fix on the last singular direction must give
+        the same proper rotation in both packages."""
+        E, K = self.poses(2)
+        rays = camera.rays_from_pose(torch.from_numpy(E), torch.from_numpy(K), (56, 70)).numpy()
+        rays[..., 0] *= -1
+        t_out = camera.pose_from_rays(torch.from_numpy(rays), torch.from_numpy(K))
+        j_out = jcam.pose_from_rays(jnp.asarray(rays), jnp.asarray(K))
+        np.testing.assert_allclose(np.linalg.det(t_out[:, :, :3].numpy()), 1.0, atol=1e-5)
+        np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out), atol=1e-4)
+
+    @pytest.mark.parametrize("ref", ["first", "last"])
+    def test_inference_use_ray_pose_matches_jax(self, jparams, net, ref):
+        imgs = np.random.default_rng(8).integers(0, 256, size=(3, 56, 70, 3)).astype(np.uint8)
+        kw = dict(image=imgs, process_res=70, use_ray_pose=True, ref_view_strategy=ref)
+        pj = JDA3(jget_preset("tiny"), jparams).inference(**kw)
+        pt = DepthAnything3(CFG, net).inference(**kw)
+        head = DepthAnything3(CFG, net).inference(**{**kw, "use_ray_pose": False})
+        # the ray pose is a Kabsch fit over the head's ray maps (|rays| ~ 1
+        # from a random-weight DPT head): 1e-4 as for the other DPT outputs
+        np.testing.assert_allclose(pt.extrinsics, pj.extrinsics, atol=1e-4)
+        np.testing.assert_allclose(pt.depth, pj.depth, atol=1e-4, rtol=1e-4)
+        anchor = {"first": 0, "last": 2}[ref]
+        # E ∘ E⁻¹ in f32, with the random-weight head's translations of ~10
+        np.testing.assert_allclose(pt.extrinsics[anchor], np.eye(4)[:3], atol=1e-4)
+        assert np.abs(pt.extrinsics - head.extrinsics).max() > 1e-3  # another pose source
 
 
 class TestResize:

@@ -128,6 +128,77 @@ class TestRegistration:
         for a, b in zip(tr, jr):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
 
+    def test_umeyama_and_huber_weights(self):
+        rng = np.random.default_rng(1)
+        src = rng.normal(size=(50, 3)).astype(np.float32)
+        dst = (0.8 * src[:, [1, 2, 0]] + 0.3).astype(np.float32)
+        for a, b in zip(registration.umeyama(T(src), T(dst)), jreg.umeyama(J(src), J(dst))):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
+        r = np.array([0.0, 0.05, 0.1, 0.2, -3.0, 1e-13], np.float32)
+        np.testing.assert_allclose(registration.huber_weights(T(r), 0.1).numpy(),
+                                   np.asarray(jreg.huber_weights(J(r), 0.1)), rtol=1e-6)
+
+    @staticmethod
+    def irls_case(n=400, outliers=40, seed=2):
+        rng = np.random.default_rng(seed)
+        src = rng.normal(size=(n, 3)).astype(np.float32)
+        ang = 0.2
+        R = np.array([[np.cos(ang), -np.sin(ang), 0], [np.sin(ang), np.cos(ang), 0], [0, 0, 1]])
+        dst = (1.1 * src @ R.T + np.array([0.1, 0.2, -0.3])).astype(np.float32)
+        dst += rng.normal(scale=2e-3, size=dst.shape).astype(np.float32)
+        dst[:outliers] += rng.normal(scale=0.8, size=(outliers, 3)).astype(np.float32)
+        conf = rng.uniform(0.2, 2.0, size=n).astype(np.float32)
+        return src, dst, conf
+
+    # tol None: the fixed count.  1e-9: never reached in max_iters steps.  3e-2:
+    # reached after a few steps, so the frozen carry must equal JAX's early
+    # exit (its while_loop stops; the port runs on and keeps the converged
+    # transform).  10.0: reached at the first step.
+    # The comparison's atol is 1e-5: closed-form f32 steps from the same inputs.
+    @pytest.mark.parametrize("tol", [None, 1e-9, 3e-2, 10.0])
+    @pytest.mark.parametrize("with_scale", [False, True])
+    def test_irls_sim3(self, tol, with_scale):
+        src, dst, conf = self.irls_case()
+        kw = dict(delta=0.1, max_iters=6, with_scale=with_scale, tol=tol)
+        jr = jreg.irls_sim3(J(src), J(dst), J(conf), **kw)
+        tr = registration.irls_sim3(T(src), T(dst), T(conf), **kw)
+        for a, b in zip(tr.transform, jr.transform):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
+        np.testing.assert_allclose(float(tr.rmse), float(jr.rmse), atol=1e-5)
+        assert int(tr.n_effective) == int(jr.n_effective) == 400
+
+    def test_irls_tol_changes_the_result(self):
+        """The early exit is live in both packages: a loose tol stops after
+        the first update, which the fixed count moves on from."""
+        src, dst, conf = self.irls_case()
+        loose = registration.irls_sim3(T(src), T(dst), T(conf), max_iters=6, tol=10.0)
+        fixed = registration.irls_sim3(T(src), T(dst), T(conf), max_iters=6)
+        one = registration.irls_sim3(T(src), T(dst), T(conf), max_iters=1)
+        np.testing.assert_array_equal(loose.transform.R.numpy(), one.transform.R.numpy())
+        assert np.abs(loose.transform.t.numpy() - fixed.transform.t.numpy()).max() > 1e-4
+
+    def test_irls_nonfinite_points_and_default_conf(self):
+        src, dst, _ = self.irls_case()
+        src[5] = np.nan
+        dst[7, 1] = np.inf
+        jr = jreg.irls_sim3(J(src), J(dst), tol=1e-9)
+        tr = registration.irls_sim3(T(src), T(dst), tol=1e-9)
+        for a, b in zip(tr.transform, jr.transform):
+            assert np.isfinite(a.numpy()).all()
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
+        np.testing.assert_allclose(float(tr.rmse), float(jr.rmse), atol=1e-5)
+        assert int(tr.n_effective) == int(jr.n_effective) == 398
+
+    def test_irls_too_few_points_gives_identity(self):
+        src, dst, conf = self.irls_case(n=120)
+        conf[30:] = 0  # 30 weighted points < min_points 100
+        jr = jreg.irls_sim3(J(src), J(dst), J(conf))
+        tr = registration.irls_sim3(T(src), T(dst), T(conf))
+        assert float(tr.transform.s) == 1.0 and float(tr.rmse) == 0.0 == float(jr.rmse)
+        np.testing.assert_array_equal(tr.transform.R.numpy(), np.eye(3, dtype=np.float32))
+        np.testing.assert_array_equal(tr.transform.t.numpy(), np.zeros(3, np.float32))
+        assert int(tr.n_effective) == int(jr.n_effective) == 30
+
 
 class TestAlignment:
     def test_chain_extrinsics(self):
@@ -138,7 +209,8 @@ class TestAlignment:
                 alignment.chain_extrinsics(T(poses), T(anchor), idx).numpy(),
                 np.asarray(jalign.chain_extrinsics(J(poses), J(anchor), idx)), atol=1e-5)
 
-    @pytest.mark.parametrize("method,anchor_idx", [("icp", 0), ("icp", 2), ("umeyama", 0)])
+    @pytest.mark.parametrize("method,anchor_idx", [("icp", 0), ("icp", 2), ("umeyama", 0),
+                                                   ("irls", 0), ("irls", 2)])
     def test_align_chunk_single_overlap(self, method, anchor_idx):
         poses = make_trajectory(9)
         prev_depth, prev_ext = local_chunk(poses, [0, 1, 2, 3])
@@ -150,8 +222,8 @@ class TestAlignment:
             cur_depth=cur_depth, cur_conf=conf, cur_K=np.stack([K] * 5),
             cur_extrinsics=cur_ext, prev_overlap_global=prev_ext[-1],
         )
-        cfg_j = jalign.AlignmentConfig(method=method, icp_max_iterations=25)
-        cfg_t = alignment.AlignmentConfig(method=method, icp_max_iterations=25)
+        cfg_j = jalign.AlignmentConfig(method=method, icp_max_iterations=25, irls_tol=1e-9)
+        cfg_t = alignment.AlignmentConfig(method=method, icp_max_iterations=25, irls_tol=1e-9)
         jo = jalign.align_chunk_single_overlap(**{k: J(v) for k, v in args.items()},
                                                config=cfg_j, anchor_idx=anchor_idx)
         to = alignment.align_chunk_single_overlap(**{k: T(v) for k, v in args.items()},
@@ -162,18 +234,40 @@ class TestAlignment:
                      (to.prev_overlap_for_next, jo.prev_overlap_for_next),
                      (to.depth_scaled, jo.depth_scaled)):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4)
+        np.testing.assert_allclose(float(to.fitness), float(jo.fitness), atol=1e-3)
+        np.testing.assert_allclose(float(to.inlier_rmse), float(jo.inlier_rmse), atol=1e-4)
         # the chain recovers the ground-truth global poses of the chunk
         np.testing.assert_allclose(to.extrinsics_global.numpy(),
                                    poses[cur_idx].astype(np.float32), atol=5e-3)
 
     def test_irls_not_ported_raises(self):
+        """``irls`` is ported and runs; what still raises is a method that
+        neither package knows."""
         poses = make_trajectory(4)
         d, e = local_chunk(poses, [0, 1, 2, 3])
         conf = np.ones_like(d)
-        with pytest.raises(NotImplementedError):
+        args = (T(d[-1]), T(conf[0]), T(K), T(d), T(conf), T(np.stack([K] * 4)), T(e), T(e[-1]))
+        out = alignment.align_chunk_single_overlap(
+            *args, config=alignment.AlignmentConfig(method="irls"))
+        assert torch.isfinite(out.extrinsics_global).all() and float(out.fitness) == 1.0
+        with pytest.raises(ValueError, match="unknown alignment method"):
             alignment.align_chunk_single_overlap(
-                T(d[-1]), T(conf[0]), T(K), T(d), T(conf), T(np.stack([K] * 4)), T(e), T(e[-1]),
-                config=alignment.AlignmentConfig(method="irls"))
+                *args, config=alignment.AlignmentConfig(method="teaser"))
+
+    def test_alignment_config_from_yaml_blocks(self):
+        """``Align`` keys are the fields' names; the ``IRLS`` block fills the
+        ``irls_*`` fields; ``Align`` wins; unknown keys are rejected."""
+        from da3slam_tpu_torch.inout import load_config
+
+        cfg = alignment.AlignmentConfig.from_config(load_config("configs/config1.yaml"))
+        assert (cfg.method, cfg.irls_delta, cfg.irls_max_iters, cfg.irls_tol) == \
+            ("icp", 0.1, 5, 1e-9)
+        cfg = alignment.AlignmentConfig.from_config(
+            {"Align": {"method": "irls", "irls_max_iters": 9}, "IRLS": {"max_iters": 3, "tol": 0.5}})
+        assert (cfg.method, cfg.irls_max_iters, cfg.irls_tol) == ("irls", 9, 0.5)
+        assert alignment.AlignmentConfig.from_config({}) == alignment.AlignmentConfig()
+        with pytest.raises(TypeError):
+            alignment.AlignmentConfig.from_config({"IRLS": {"huber": 1}})
 
 
 def ate_rmse(c2w_est, c2w_gt):
@@ -317,6 +411,59 @@ class TestHostIO:
             pf.close()
         assert not any(t.is_alive() for t in pf._threads)
 
+    @pytest.mark.parametrize("binary", [True, False])
+    @pytest.mark.parametrize("colors", ["uint8", "float01", "float255", None])
+    def test_write_ply_matches_jax_byte_for_byte(self, tmp_path, binary, colors):
+        from da3slam_tpu.inout import write_ply as j_write
+        from da3slam_tpu_torch.inout import write_ply
+
+        rng = np.random.default_rng(3)
+        pts = rng.normal(size=(37, 3))
+        cols = {"uint8": rng.integers(0, 256, size=(37, 3)).astype(np.uint8),
+                "float01": rng.uniform(0, 1, size=(37, 3)),
+                "float255": rng.uniform(0, 300, size=(37, 3)), None: None}[colors]
+        write_ply(tmp_path / "t" / "c.ply", pts, cols, binary=binary)
+        j_write(tmp_path / "j" / "c.ply", pts, cols, binary=binary)
+        assert (tmp_path / "t" / "c.ply").read_bytes() == (tmp_path / "j" / "c.ply").read_bytes()
+
+    def test_stage_next_on_cpu(self, tmp_path):
+        """Staging on the CPU: the partition's chunks come back as stacked
+        arrays, in order; at most ``stage_ahead`` are held; ``stage_next``
+        says False once the partition is exhausted or staging is off; a chunk
+        outside the partition is decoded as before."""
+        from PIL import Image
+
+        from da3slam_tpu_torch.inout.images import decode_image
+        from da3slam_tpu_torch.inout.prefetch import ImagePrefetcher
+
+        rng = np.random.default_rng(0)
+        paths = []
+        for i in range(10):
+            p = tmp_path / f"{i:03d}.png"
+            Image.fromarray(rng.integers(0, 256, size=(8, 10, 3)).astype(np.uint8)).save(p)
+            paths.append(str(p))
+        stage = [paths[a:b] for a, b in make_chunk_indices(10, 4, 1)]  # [0,4) [3,7) [6,10)
+        pf = ImagePrefetcher(paths, lookahead=8, workers=2, stage_chunks=stage, stage_ahead=2)
+        try:
+            first = pf.get_batch(stage[0])  # not staged ahead: stacked on demand
+            assert isinstance(first, np.ndarray) and pf._stage_pos == 1
+            assert pf.stage_next() and pf.stage_next()  # chunks 1 and 2
+            assert not pf.stage_next() and len(pf._staged) == 2  # stage_ahead reached
+            for chunk in stage[1:]:
+                got = pf.get_batch(chunk)
+                np.testing.assert_array_equal(got, np.stack([decode_image(p) for p in chunk]))
+            np.testing.assert_array_equal(first, np.stack([decode_image(p) for p in stage[0]]))
+            assert not pf.stage_next() and not pf._staged  # partition exhausted
+            np.testing.assert_array_equal(pf.get_batch(paths[1:3]),
+                                          np.stack([decode_image(p) for p in paths[1:3]]))
+        finally:
+            pf.close()
+        off = ImagePrefetcher(paths, workers=1)
+        try:
+            assert not off.stage_next()
+        finally:
+            off.close()
+
 
 def make_frames(n=11, h=56, w=70, seed=0):
     rng = np.random.default_rng(seed)
@@ -364,6 +511,65 @@ class TestWholeSlice:
         np.testing.assert_allclose(tp, jp, atol=1e-4)
         np.testing.assert_allclose(np.loadtxt(tmp_path / "port" / "intrinsic.txt"),
                                    np.loadtxt(tmp_path / "jax" / "intrinsic.txt"), atol=1e-3)
+
+    @pytest.mark.parametrize("method", ["icp", "irls", "umeyama"])
+    def test_main_align_matches_jax_cli(self, tmp_path, monkeypatch, capsys, method):
+        """main_align of both packages over one PNG directory with the same
+        tiny weights and ray poses: 9 frames in chunks of 4 (one steady chunk
+        and the re-anchored tail).  The printed depth scale, fitness and rmse
+        per chunk agree to 1e-3 (the chunk scales are inexact in f32: the
+        ICP note in the module docstring), the fused clouds to 1e-3.  ICP's
+        fitness is a count over the ~320 strided source points: on the
+        random-weight model's rough depth a point within rounding of the 0.1
+        gate falls on either side, each moving fitness by 3e-3, so it is held
+        to 2e-2."""
+        from PIL import Image
+
+        from da3slam_tpu.cli import main_align as j_main
+        from da3slam_tpu.inout.ply import read_ply
+        from da3slam_tpu_torch.cli import main_align as t_main
+
+        frames_dir = tmp_path / "frames"
+        frames_dir.mkdir()
+        for i, f in enumerate(make_frames(9)):
+            Image.fromarray(f).save(frames_dir / f"{i:06d}.png")
+        jparams = jax.tree.map(np.asarray, jinit(jax.random.PRNGKey(0), jget_preset("tiny")))
+        net = DA3Net(get_preset("tiny"))
+        net.load_state_dict(convert(jparams), strict=True)
+        monkeypatch.setattr(TDA3, "from_pretrained", classmethod(
+            lambda cls, preset, seed=0, device="cuda": cls(get_preset("tiny"), net.to(device))))
+
+        common = ["--image_dir", str(frames_dir), "--model", "tiny", "--method", method,
+                  "--process_res", "70", "--headless"]
+        j_main.main(common + ["--output_ply", str(tmp_path / "jax.ply")])
+        j_out = capsys.readouterr().out
+        t_main.main(common + ["--output_ply", str(tmp_path / "port.ply"), "--device", "cpu"])
+        t_out = capsys.readouterr().out
+
+        def stats(text):
+            rows = [ln.replace("=", " ").split() for ln in text.splitlines()
+                    if ln.startswith("chunk ")]
+            return np.array([[float(r[3]), float(r[5]), float(r[7])] for r in rows])
+
+        assert stats(t_out).shape == (2, 3) and np.isfinite(stats(t_out)).all()
+        np.testing.assert_allclose(stats(t_out)[:, [0, 2]], stats(j_out)[:, [0, 2]], atol=1e-3)
+        np.testing.assert_allclose(stats(t_out)[:, 1], stats(j_out)[:, 1],
+                                   atol=2e-2 if method == "icp" else 1e-3)
+        (tp, tc), (jp, jc) = read_ply(tmp_path / "port.ply"), read_ply(tmp_path / "jax.ply")
+        assert tp.shape == jp.shape and len(tp) > 0
+        np.testing.assert_allclose(tp, jp, atol=1e-3)
+        np.testing.assert_array_equal(tc, jc)
+
+    def test_main_align_refuses_what_is_not_ported(self, tmp_path):
+        from da3slam_tpu_torch.cli import main_align
+
+        base = ["--image_dir", str(tmp_path), "--device", "cpu"]
+        with pytest.raises(NotImplementedError, match="headless"):
+            main_align.main(base)
+        with pytest.raises(NotImplementedError, match="item 13"):
+            main_align.main(base + ["--headless", "--debug_color"])
+        with pytest.raises(SystemExit, match="no images"):
+            main_align.main(base + ["--headless", "--model", "tiny"])
 
     def test_cli_refuses_missing_cuda_and_viewer(self, tmp_path):
         from da3slam_tpu_torch.cli import main_slam
