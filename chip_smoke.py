@@ -7,7 +7,8 @@ final line:
 
 1. env: the card (nvidia-smi name and power limit), torch and CUDA versions
 2. build: nvcc build of every kernel (flash attention, the flash probes, the
-   3x3 conv), with ptxas's registers, shared memory and spills per kernel
+   3x3 conv, the int8 probe), with ptxas's registers, shared memory and spills
+   per kernel
 3. kernel vs plain, bound and stable forwards: each kernel against its plain
    torch version, both on the card, at the SMALL tier's shapes and, for the
    bound forward, the LARGE tier's (CUDA-event times, median of a few runs)
@@ -32,17 +33,29 @@ final line:
     a dropped halo row or column must break the bound
 11. flash probes vs plain: the constant-shift, bisect and online-softmax lab
     kernels against their plain versions at the tools' shapes and a ragged one
-12. tools: ``da3slam_tpu_torch.tools``' four ``main``s, counting the launches
-13. main_align: ``da3slam_tpu_torch.cli.main_align`` at the LARGE tier
+12. int8 flash vs plain: the int8 probe kernel against its plain version at
+    the tool's shape, the tool's check shape (a ragged last block) and a small
+    ragged case; the plain version with a key tile or its last block dropped
+    must break the bound; the error against f32 softmax attention beside it
+13. tools: ``da3slam_tpu_torch.tools``' five ``main``s, counting the launches
+14. main_align: ``da3slam_tpu_torch.cli.main_align`` at the LARGE tier
     (``--method irls``, ray poses, chunk 15) over the same 31 frames: a finite
-    PLY and diagnostics, 72 bound-forward launches; then a ``torch.profiler``
-    split of one LARGE chunk
-14. main_slam with ``Align.method: irls``: the main path again from a config
+    PLY and diagnostics, 72 bound-forward launches
+15. w8a8: one LARGE chunk of 15 frames through ``model.quantize()`` against
+    the float model (same weights): finite, close, 24 bound-forward launches;
+    then a ``torch.profiler`` split of one warm chunk for each
+16. main_slam with ``Align.method: irls``: the main path again from a config
     file, device-resident, with the prefetcher's staging on and off, counting
     the launches and the host's waits for the device
+17. checkpoint: SMALL written with the port's ``save_checkpoint`` and loaded
+    with ``from_pretrained(dir)``: outputs bit-equal to the model that was saved
+18. pipeline: ``run_streaming_slam`` over the same 31 frames (SMALL, chunk 15,
+    overlap 1), whole and in one-window segments spilled to the host: equal,
+    36 bound-forward launches each, and held to phase 16's ``main_slam``
+    trajectory (ICP, device-resident)
 
-Each driven path (7, 8, 9, 12, 13, 14) sets every launch count to 0 just
-before it and reads them just after.  The ``kernels`` line gives each kernel's
+Each driven path (7, 8, 9, 13, 14, 15, 16, 18) sets every launch count to 0
+just before it and reads them just after.  The ``kernels`` line gives each kernel's
 launches, error, time, plain version's time, roofline bound (from the shapes
 of this run, against the H100 SXM data sheet's peaks) and, where one PyTorch
 call computes the same function, that call's time (timed here, used nowhere
@@ -152,8 +165,31 @@ CONV_F32_TOL = 1e-4
 # length), BH = 6, bf16; and a ragged small case (Sq, Sk, seq_k).
 PROBE_S, PROBE_PAD, LAB_S = 20816, 21504, 20480
 PROBE_RAGGED = (300, 333, 290)
+# The int8 flash probe: (label, dtype, shape [B, S, H, D], block_k): the tool's
+# shape, the tool's check shape (1500 keys in blocks of 512: a ragged last
+# block of 476) and a small ragged case.  Kernel and plain version quantize
+# with the same tensor code, take the same exact integer products and convert
+# them to f32 at the same points, so they differ where exp2f on the card
+# differs from torch.exp2 (if at all: a p8 at a rounding boundary tips by one
+# count of the 10^3-10^4 in a row's sum, ~1e-4 relative) and by the bf16
+# output's last bit: 2^-6 * max |O|, as for the other forwards.  A kernel that
+# skipped one 64-key tile, or the ragged last block, would move O by several
+# times that: the phase checks that the bound catches both at each shape.
+INT8_CASES = [
+    ("tool", torch.bfloat16, (1, 20816, 6, 64), 3584),
+    ("check", torch.float32, (1, 1500, 2, 64), 512),
+    ("ragged", torch.bfloat16, (2, 300, 3, 64), 128),
+]
+INT8_SOFTMAX_REL_TOL = 0.08  # the tool's limit, at its check shape
+# W8A8 against float at LARGE: tests/test_quant.py's limits (depth relative
+# L2, extrinsics max abs)
+W8A8_DEPTH_REL_TOL = 0.05
+W8A8_EXT_TOL = 0.05
+# run_streaming_slam against itself in segments and against main_slam: the
+# same operations queued on the same inputs (tests/test_torch_pipeline.py: 1e-4)
+PIPELINE_TOL = 1e-4
 # The H100 SXM data sheet's dense peaks, for the roofline bounds
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 # f32 card-vs-CPU parity: max |cuda - cpu| / max |cpu| per output / parameter
@@ -287,7 +323,7 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def counters():
-    from da3slam_tpu_torch.ops import conv3x3, flash_probes
+    from da3slam_tpu_torch.ops import conv3x3, flash_probes, int8_flash
     from da3slam_tpu_torch.ops import flash_attention as fa
 
     return {"flash_attn_bound_fwd": fa.flash_attention_bound,
@@ -297,7 +333,8 @@ def counters():
             "conv3x3": conv3x3.conv3x3_fused,
             "flash_probe_nomax": flash_probes.flash_nomax,
             "flash_probe_bisect": flash_probes.flash_bisect,
-            "flash_probe_lab": flash_probes.flash_lab}
+            "flash_probe_lab": flash_probes.flash_lab,
+            "int8_flash_fwd": int8_flash.int8_flash}
 
 
 def expected_launches(**nonzero: int) -> dict:
@@ -564,7 +601,7 @@ def phase_train_grad_parity() -> None:
 
 
 def _kernel_category(name: str) -> str:
-    if any(s in name for s in ("flash_fwd", "key_norm_max", "flash_probe")):
+    if any(s in name for s in ("flash_fwd", "key_norm_max", "flash_probe", "int8_flash")):
         return "attention_fwd"
     if "flash_bwd" in name:
         return "attention_bwd"
@@ -877,30 +914,102 @@ def _probe_case(kernel, case, variant, run, plain, library, bound, shape) -> dic
     return row
 
 
+def phase_int8_flash() -> dict:
+    """The int8 probe kernel against its plain version (bound: see INT8_CASES),
+    and both against f32 softmax attention (the algorithm's own error)."""
+    from da3slam_tpu_torch.ops.int8_flash import (
+        effective_block_k,
+        int8_flash,
+        int8_flash_reference,
+        quantize_qkv,
+    )
+    from da3slam_tpu_torch.tools.int8_flash_probe import int8_inputs, softmax_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for label, dtype, shape, block_k in INT8_CASES:
+        B, S, H, D = shape
+        if B == 1:  # the tool's own inputs: its softmax limit is stated for them
+            q, k, v = int8_inputs(S, H, "cuda", dtype)
+        else:
+            q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                       for _ in range(3))
+        o = int8_flash(q, k, v, block_k=block_k)
+        ref = int8_flash_reference(q, k, v, block_k)
+        torch.cuda.synchronize()
+        err = (o.float() - ref.float()).abs().max().item()
+        tol = fwd_bound(ref)
+        bk = effective_block_k(S, block_k)
+        last = (-(-S // bk) - 1) * bk
+        dropped = {}
+        for what, drop in (("key_tile", (64, 128)), ("last_block", (last, last + bk))):
+            cut = int8_flash_reference(q, k, v, block_k, drop=drop)
+            dropped[what] = (cut.float() - ref.float()).abs().max().item()
+            del cut
+        soft = softmax_attention(q, k, v)
+        soft_err = (o.float() - soft).abs().max().item()
+        soft_rel = soft_err / soft.abs().max().item()
+        del soft
+        ops = 4 * B * H * S * S * D
+        ms = cuda_ms(lambda: int8_flash(q, k, v, block_k=block_k), reps=5)
+        row = {"case": label, "dtype": str(dtype).replace("torch.", ""), "shape": list(shape),
+               "block_k": block_k, "max_abs_err": err, "tol": tol,
+               "plain_max_abs": ref.float().abs().max().item(), "dropped_err": dropped,
+               "softmax_max_abs_err": soft_err, "softmax_rel_err": soft_rel,
+               "ms": ms,
+               # the quantization before the kernel and the de-scale after it
+               # are tensor code inside ``ms``: their share, timed apart
+               "quantize_ms": cuda_ms(lambda: quantize_qkv(q, k, v, block_k), reps=3),
+               "plain_ms": cuda_ms(lambda: int8_flash_reference(q, k, v, block_k), reps=1),
+               "library_ms": None, "library": None, "kernel_tops": ops / ms / 1e9,
+               # q, k, v in and O out in bf16 or f32; both products count as int8
+               **roofline(ops, B * S * H * D * (3 * q.element_size() + 2), torch.int8)}
+        emit("int8_flash_vs_plain", **row)
+        if not bool(torch.isfinite(o).all().item()) or not err <= tol:
+            fail(f"int8_flash disagrees with its plain version at {label}: {err} > {tol}")
+        for what, cut_err in dropped.items():
+            if not cut_err > tol:
+                fail(f"the int8_flash bound at {label} ({tol}) would pass a dropped {what} "
+                     f"({cut_err})")
+        if label == "check" and not soft_rel < INT8_SOFTMAX_REL_TOL:
+            fail(f"int8_flash is {soft_rel} of the output's range from softmax attention at "
+                 f"the check shape (limit {INT8_SOFTMAX_REL_TOL})")
+        rows.append(row)
+        del q, k, v, o, ref
+        torch.cuda.empty_cache()
+    return {"int8_flash_fwd": rows}
+
+
 def phase_tools(path_launches: dict) -> None:
-    """The four probe tools through their ``main``: every line they print
-    carries the kernel's error against its plain version, held here to the
-    bounds of the phases above."""
+    """The five probe tools through their ``main``: every row that carries a
+    kernel's error against its plain version is held here to the bounds of the
+    phases above, and the int8 tool's check case to its own limit."""
     from da3slam_tpu_torch.tools import flash_bound_bisect, flash_lab, flash_nomax_probe
-    from da3slam_tpu_torch.tools import probe_conv3x3
+    from da3slam_tpu_torch.tools import int8_flash_probe, probe_conv3x3
 
     with counted(path_launches, "tools"):
         t0 = time.perf_counter()
         out = {"probe_conv3x3": probe_conv3x3.main([]),
                "flash_nomax_probe": flash_nomax_probe.main(["1024,3584"]),
                "flash_bound_bisect": flash_bound_bisect.main(["A", "C", "E"]),
-               "flash_lab": flash_lab.main([])}
+               "flash_lab": flash_lab.main([]),
+               "int8_flash_probe": int8_flash_probe.main([]) + int8_flash_probe.main(["--check"])}
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = path_launches["tools"]
     emit("tools", wall_s=wall, launches=launches, rows=out)
-    for name in ("conv3x3", "flash_probe_nomax", "flash_probe_bisect", "flash_probe_lab"):
+    for name in ("conv3x3", "flash_probe_nomax", "flash_probe_bisect", "flash_probe_lab",
+                 "int8_flash_fwd"):
         if not launches[name]:
             fail(f"tools: {name} was launched no time")
-    if any(launches[name] for name in launches if name.startswith("flash_attn")):
+    # the int8 tool times the production bound forward beside its kernel
+    if any(launches[name] for name in launches
+           if name.startswith("flash_attn") and name != "flash_attn_bound_fwd"):
         fail(f"tools: a production kernel was launched: {launches}")
     for tool, rows in out.items():
         for row in rows:
+            if "max_abs_err" not in row:
+                continue  # an accuracy or time line without a plain-version comparison
             tol = BF16_REL_TOL * row["plain_max_abs"]
             if not row["max_abs_err"] <= tol or not row.get("lse_max_abs_err", 0.0) <= LSE_TOL:
                 fail(f"tools: {tool} reports {row}")
@@ -918,7 +1027,6 @@ def read_ply(path: Path) -> tuple[np.ndarray, np.ndarray]:
 
 def phase_main_align(path_launches: dict) -> None:
     from da3slam_tpu_torch.cli import main_align
-    from da3slam_tpu_torch.models.da3 import DepthAnything3
 
     ply = WORK / "align" / "fused.ply"
     args = ["--image_dir", str(frames_dir()), *ALIGN_ARGS, "--output_ply", str(ply)]
@@ -949,12 +1057,64 @@ def phase_main_align(path_launches: dict) -> None:
         fail(f"main_align: PLY with {len(pts)} points, finite={np.isfinite(pts).all()}")
     if launches != expected:
         fail(f"kernel launches on the main_align path: {launches} != {expected}")
-    # where one warm LARGE chunk's device time goes
+
+
+def phase_w8a8(path_launches: dict) -> None:
+    """One LARGE chunk (15 frames at 504², bf16, random weights from a seed)
+    through ``model.quantize()`` against the float model it was made from:
+    outputs finite and within tests/test_quant.py's limits, 24 bound-forward
+    launches and no other kernel; chunk times in turns (float, w8a8, w8a8,
+    float); then where one warm chunk's device time goes, for each."""
+    from da3slam_tpu_torch.models.da3 import DepthAnything3
+    from da3slam_tpu_torch.models.vit import Int8Linear
+
     model = DepthAnything3.from_pretrained("large", device="cuda")
+    qmodel = model.quantize()
+    n_int8 = sum(isinstance(m, Int8Linear) for m in qmodel.net.modules())
     frames = make_frames(15, seed=1)
+    torch.cuda.synchronize()
+    with counted(path_launches, "w8a8"):
+        pred_q = qmodel.inference(image=frames)
+        torch.cuda.synchronize()
+    launches = path_launches["w8a8"]
+    expected = expected_launches(flash_attn_bound_fwd=model.cfg.depth)
+    pred_f = model.inference(image=frames)
+    finite = all(bool(np.isfinite(getattr(pred_q, f)).all())
+                 for f in ("depth", "conf", "extrinsics", "intrinsics"))
+    depth_rel = float(np.linalg.norm(pred_q.depth - pred_f.depth)
+                      / max(np.linalg.norm(pred_f.depth), 1e-9))
+    ext_err = float(np.abs(pred_q.extrinsics - pred_f.extrinsics).max())
+    chunk_ms = [(tag, cuda_ms(lambda m=m: m.inference(image=frames, keep_on_device=True), reps=2))
+                for tag, m in (("float", model), ("w8a8", qmodel), ("w8a8", qmodel),
+                               ("float", model))]
+    emit("w8a8", preset="large", frames=15, dtype="bfloat16", int8_linears=n_int8,
+         float_model_untouched=not any(isinstance(m, Int8Linear) for m in model.net.modules()),
+         finite=finite, depth_rel_l2=depth_rel, depth_tol=W8A8_DEPTH_REL_TOL,
+         extrinsics_max_abs_diff=ext_err, extrinsics_tol=W8A8_EXT_TOL,
+         chunk_ms_in_turns=chunk_ms, kernel_launches=launches, expected_launches=expected)
+    if n_int8 != 3 * model.cfg.depth:
+        fail(f"w8a8: {n_int8} quantized projections, expected {3 * model.cfg.depth}")
+    if not finite or not depth_rel <= W8A8_DEPTH_REL_TOL or not ext_err <= W8A8_EXT_TOL:
+        fail(f"w8a8: finite={finite}, depth rel L2 {depth_rel}, extrinsics {ext_err}")
+    if launches != expected:
+        fail(f"kernel launches on the w8a8 path: {launches} != {expected}")
+    # the QKV product alone (19515 x 1024 x 3072): torch._int_mm with w8 in
+    # quantize_weight's column-major layout and row-major, beside the bf16 GEMM
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x8 = torch.randint(-127, 128, (15 * 1301, 1024), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    w8 = torch.randint(-127, 128, (3072, 1024), generator=gen, device="cuda", dtype=torch.int8)
+    xb, wb = x8.bfloat16(), w8.t().bfloat16().contiguous()
+    emit("int8_gemm", shape=[15 * 1301, 1024, 3072],
+         int_mm_column_major_ms=cuda_ms(lambda: torch._int_mm(x8, w8.t()), reps=5),
+         int_mm_row_major_ms=cuda_ms(lambda: torch._int_mm(x8, w8.t().contiguous()), reps=5),
+         bf16_matmul_ms=cuda_ms(lambda: xb @ wb, reps=5))
+    # where one warm LARGE chunk's device time goes
     _profile("large_chunk_profile", lambda: model.inference(image=frames, use_ray_pose=True),
              preset="large", frames=15, dtype="bfloat16")
-    del model
+    _profile("w8a8_chunk_profile", lambda: qmodel.inference(image=frames, use_ray_pose=True),
+             preset="large", frames=15, dtype="bfloat16 activations, int8 QKV and MLP GEMMs")
+    del model, qmodel
     torch.cuda.empty_cache()
 
 
@@ -971,7 +1131,7 @@ def _count_syncs(fn) -> int:
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
-def phase_main_slam_irls(path_launches: dict) -> None:
+def phase_main_slam_irls(path_launches: dict) -> dict:
     """The main path again from a config file: device-resident solver, IRLS
     alignment with the config's IRLS block, the prefetcher staging each next
     chunk's upload on its side stream.  The host's waits for the device are
@@ -1013,6 +1173,92 @@ def phase_main_slam_irls(path_launches: dict) -> None:
     emit("main_slam_irls", frames=N_FRAMES, runs=runs,
          syncs_irls_adds_over_icp=runs["irls"]["host_syncs"] - runs["icp"]["host_syncs"],
          syncs_staging_adds=runs["irls"]["host_syncs"] - runs["irls_no_prefetch"]["host_syncs"])
+    return runs
+
+
+def phase_checkpoint() -> None:
+    """SMALL written by the port's ``save_checkpoint`` and read back by
+    ``from_pretrained(dir)``: the same tensors, the same outputs, bit for bit."""
+    from da3slam_tpu_torch.models.da3 import DepthAnything3
+    from da3slam_tpu_torch.models.weights import save_checkpoint
+
+    ckpt = WORK / "ckpt"
+    model = DepthAnything3.from_pretrained("small", seed=0, device="cuda")
+    save_checkpoint(ckpt, model.net.state_dict(), model.cfg)
+    loaded = DepthAnything3.from_pretrained(str(ckpt), device="cuda")
+    sd, sd2 = model.net.state_dict(), loaded.net.state_dict()
+    same_tensors = set(sd) == set(sd2) and all(torch.equal(sd[k], sd2[k]) for k in sd)
+    frames = make_frames(2)
+    a, b = model.inference(image=frames), loaded.inference(image=frames)
+    same_outputs = all(np.array_equal(getattr(a, f), getattr(b, f))
+                       for f in ("depth", "conf", "extrinsics", "intrinsics"))
+    emit("checkpoint", preset="small", tensors=len(sd),
+         file_bytes=(ckpt / "model.safetensors").stat().st_size,
+         config_equal=loaded.cfg == model.cfg, tensors_bit_equal=same_tensors,
+         outputs_bit_equal=same_outputs, outputs_finite=bool(np.isfinite(b.depth).all()))
+    if not (loaded.cfg == model.cfg and same_tensors and same_outputs
+            and np.isfinite(b.depth).all()):
+        fail("checkpoint: the loaded model is not the one that was saved")
+
+
+def phase_pipeline(path_launches: dict, slam_runs: dict) -> None:
+    """``run_streaming_slam`` over the 31 frames (SMALL, chunk 15, overlap 1,
+    bf16, ICP): whole and in one-window segments spilled to the host.  The two
+    agree, and their trajectory is ``main_slam``'s device-resident one of the
+    same weights and frames (phase_main_slam_irls's ``icp`` run), to
+    PIPELINE_TOL.  The host's waits for the device are counted beside
+    ``main_slam``'s."""
+    from da3slam_tpu_torch.core.transforms import se3_inverse, se3_to_4x4
+    from da3slam_tpu_torch.inout.images import decode_image, load_image_paths
+    from da3slam_tpu_torch.models.da3 import DepthAnything3
+    from da3slam_tpu_torch.slam.pipeline import make_windows, run_streaming_slam
+
+    frames = np.stack([decode_image(p) for p in load_image_paths(str(frames_dir()))])
+    model = DepthAnything3.from_pretrained("small", seed=0, device="cuda")
+    _, anchors = make_windows(N_FRAMES, 15, 1)
+    outs, stats = {}, {}
+    for tag, kw in (("whole", {}),
+                    ("segmented", {"segment_windows": 1, "segment_spill": "host"})):
+        box = {}
+
+        def run(kw=kw, box=box):
+            box["out"] = run_streaming_slam(model.net, frames, model.cfg, chunk_size=15,
+                                            overlap=1, process_hw=(504, 504), **kw)
+
+        torch.cuda.synchronize()
+        with counted(path_launches, f"pipeline_{tag}"):
+            t0 = time.perf_counter()
+            syncs = _count_syncs(run)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        outs[tag] = [np.asarray(t.cpu()) if isinstance(t, torch.Tensor) else t
+                     for t in box["out"]]
+        launches = path_launches[f"pipeline_{tag}"]
+        stats[tag] = {"wall_s": wall, "frames_per_s": N_FRAMES / wall, "host_syncs": syncs,
+                      "bound_launches": launches["flash_attn_bound_fwd"],
+                      "outputs_are": type(box["out"].depth).__name__}
+        if launches != expected_launches(flash_attn_bound_fwd=EXPECTED_LAUNCHES):
+            fail(f"pipeline {tag}: launches {launches}")
+        if not all(np.isfinite(a).all() for a in outs[tag]):
+            fail(f"pipeline {tag}: outputs not finite")
+    seg_diff = max(float(np.abs(a.astype(np.float64) - b.astype(np.float64)).max())
+                   for a, b in zip(outs["whole"], outs["segmented"]))
+    ext = outs["whole"][2]  # [C, N, 3, 4] w2c; drop each later window's overlap frames
+    w2c = np.concatenate([ext[k][(anchors[k] + 1 if k else 0):] for k in range(len(anchors))])
+    c2w = se3_to_4x4(se3_inverse(torch.from_numpy(w2c))).numpy()
+    slam = np.loadtxt(WORK / "out_icp" / "camera_poses.txt", ndmin=2).reshape(-1, 4, 4)
+    slam_diff = float(np.abs(c2w - slam).max()) if c2w.shape == slam.shape else None
+    emit("pipeline", frames=N_FRAMES, preset="small", chunk_size=15, overlap=1, dtype="bfloat16",
+         runs=stats, poses_shape=list(c2w.shape), poses_finite=bool(np.isfinite(c2w).all()),
+         whole_vs_segmented_max_abs_diff=seg_diff, vs_main_slam_max_abs_diff=slam_diff,
+         tol=PIPELINE_TOL, main_slam_icp_host_syncs=slam_runs["icp"]["host_syncs"],
+         main_slam_icp_wall_s=slam_runs["icp"]["wall_s"])
+    if c2w.shape != (N_FRAMES, 4, 4) or not np.isfinite(c2w).all():
+        fail(f"pipeline: poses {c2w.shape}, finite={np.isfinite(c2w).all()}")
+    if not seg_diff <= PIPELINE_TOL:
+        fail(f"pipeline: whole and segmented runs differ by {seg_diff}")
+    if slam_diff is None or not slam_diff <= PIPELINE_TOL:
+        fail(f"pipeline: trajectory differs from main_slam's by {slam_diff}")
 
 
 SOURCES = {
@@ -1033,6 +1279,8 @@ SOURCES = {
                            "tools/flash_bound_bisect.py:35", "tool"),
     "flash_probe_lab": ("da3slam_tpu_torch/ops/csrc/flash_probe_fwd.cu",
                         "tools/flash_lab.py:34", "tool"),
+    "int8_flash_fwd": ("da3slam_tpu_torch/ops/csrc/int8_flash_fwd.cu",
+                       "tools/int8_flash_probe.py:51", "tool"),
 }
 
 
@@ -1051,9 +1299,13 @@ def main() -> None:
     phase_main_path(path_launches)
     rows.update(phase_conv3x3())
     rows.update(phase_flash_probes())
+    rows.update(phase_int8_flash())
     phase_tools(path_launches)
     phase_main_align(path_launches)
-    phase_main_slam_irls(path_launches)
+    phase_w8a8(path_launches)
+    slam_runs = phase_main_slam_irls(path_launches)
+    phase_checkpoint()
+    phase_pipeline(path_launches, slam_runs)
     kernels = []
     for name, (source, replaces, headline) in SOURCES.items():
         by_path = {path: counts[name] for path, counts in path_launches.items()}

@@ -25,6 +25,33 @@ import torch
 from da3slam_tpu_torch.inout.images import decode_image
 
 
+def upload_pinned(frames, device: torch.device, stream: "torch.cuda.Stream"):
+    """Stack ``frames`` (a list of equal ``[H, W, 3]`` uint8 arrays, or one
+    ``[N, H, W, 3]`` array) into pinned host memory and start the upload on the
+    side stream ``stream``.  Returns ``(device tensor, copy-done event)``;
+    :func:`claim_upload` makes a consumer's stream wait for the event."""
+    first = frames[0]
+    host = torch.empty((len(frames), *first.shape), dtype=torch.uint8, pin_memory=True)
+    if isinstance(frames, np.ndarray):
+        np.copyto(host.numpy(), frames)
+    else:
+        np.stack(frames, out=host.numpy())
+    with torch.cuda.stream(stream):
+        batch = host.to(device, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(stream)
+    return batch, done
+
+
+def claim_upload(batch: torch.Tensor, done, device: torch.device) -> torch.Tensor:
+    """Make the current stream of ``device`` wait for an upload that
+    :func:`upload_pinned` started, and hand the tensor to that stream."""
+    consumer = torch.cuda.current_stream(device)
+    consumer.wait_event(done)
+    batch.record_stream(consumer)  # allocated on the side stream
+    return batch
+
+
 class ImagePrefetcher:
     def __init__(
         self,
@@ -110,13 +137,7 @@ class ImagePrefetcher:
         else:
             if self._copy_stream is None:
                 self._copy_stream = torch.cuda.Stream(self.device)
-            host = torch.empty((len(frames), *frames[0].shape), dtype=torch.uint8,
-                               pin_memory=True)
-            np.stack(frames, out=host.numpy())
-            with torch.cuda.stream(self._copy_stream):
-                batch = host.to(self.device, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record(self._copy_stream)
+            batch, done = upload_pinned(frames, self.device, self._copy_stream)
         self._staged[tuple(chunk)] = (batch, done)
         return batch
 
@@ -163,9 +184,7 @@ class ImagePrefetcher:
         batch, done = self._staged.pop(key)
         self._stage_pos = max(self._stage_pos, pos + 1)
         if done is not None:
-            consumer = torch.cuda.current_stream(self.device)
-            consumer.wait_event(done)
-            batch.record_stream(consumer)  # allocated on the side stream
+            claim_upload(batch, done, self.device)
         self._consumed(paths)
         return batch
 

@@ -1,1 +1,2 @@
-"""The DA3 network as nn.Modules, its presets and the JAX-weight converter."""
+"""The DA3 network as nn.Modules, its presets, the JAX-weight converter and
+checkpoint directories."""

@@ -1,11 +1,12 @@
 """Model configuration and checkpoint-tier presets (copy of
-``da3slam_tpu/models/config.py``'s ``ModelConfig``, ``PRESETS`` and
-``get_preset``; that module cannot be imported without JAX, through its
+``da3slam_tpu/models/config.py``'s ``ModelConfig``, ``PRESETS``,
+``get_preset`` and ``config_from_json``; that module cannot be imported without JAX, through its
 package ``__init__``)."""
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from pathlib import Path
 
 
@@ -88,3 +89,15 @@ def get_preset(name: str) -> ModelConfig:
     if key not in PRESETS:
         raise KeyError(f"Unknown model preset {name!r}; available: {sorted(PRESETS)}")
     return PRESETS[key]
+
+
+def config_from_json(path: str | Path) -> ModelConfig:
+    """Load a ModelConfig from a checkpoint's ``config.json``; keys that are
+    no field of ``ModelConfig`` are ignored."""
+    blob = json.loads(Path(path).read_text())
+    fields = {f.name for f in dataclasses.fields(ModelConfig)}
+    known = {k: v for k, v in blob.items() if k in fields}
+    for key in ("dpt_layers", "dpt_features"):
+        if key in known and isinstance(known[key], list):
+            known[key] = tuple(known[key])
+    return ModelConfig(**known)

@@ -4,12 +4,15 @@
 ``DepthAnything3.from_pretrained(preset)`` → ``.inference(image=[...])``,
 with ``forward_fn`` underneath.  The network is one ``nn.Module`` whose
 state-dict names are the DA3/DINOv2 ones (``models/convert.py``).  The
-working dtype is bf16 on CUDA and f32 on the CPU.  Checkpoint directories,
-the nested tier and export are not ported yet.
+working dtype is bf16 on CUDA and f32 on the CPU.  ``from_pretrained`` takes
+a preset name or a checkpoint directory (``models/weights.py``);
+``quantize("w8a8")`` returns a copy whose encoder GEMMs run int8.  The nested
+tier, ``pytorch_model.bin`` files and export are not ported yet.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from pathlib import Path
 from typing import Any, Sequence
@@ -19,7 +22,7 @@ import torch
 
 from da3slam_tpu_torch.core.transforms import se3_compose, se3_inverse
 from da3slam_tpu_torch.models import camera, dpt, vit
-from da3slam_tpu_torch.models.config import ModelConfig, get_preset
+from da3slam_tpu_torch.models.config import ModelConfig, config_from_json, get_preset
 from da3slam_tpu_torch.ops.resize import (
     denormalize_to_uint8,
     resize_normalize,
@@ -110,13 +113,77 @@ class DepthAnything3:
     def from_pretrained(
         cls, preset: str, seed: int = 0, device: str | torch.device = "cuda"
     ) -> "DepthAnything3":
-        """A randomly initialised model of a preset tier (``tiny``/``small``/...,
-        or a checkpoint-directory-style name such as ``DA3-SMALL``).  Weights
-        are made on the CPU from ``seed``, then moved to ``device``."""
-        if (Path(preset) / "model.safetensors").exists():
-            raise NotImplementedError("loading checkpoint directories is not ported yet")
+        """A checkpoint directory (``model.safetensors`` + ``config.json``), or
+        a randomly initialised model of a preset tier (``tiny``/``small``/...,
+        or a checkpoint-directory-style name such as ``DA3-SMALL`` when no
+        such directory exists).  Weights are loaded or made (from ``seed``) on
+        the CPU, then moved to ``device``.
+
+        A directory in the JAX package's native layout (``/``-joined pytree
+        paths) goes through ``models/convert.py``; a torch-style (dot-named)
+        one goes straight into ``load_state_dict``."""
+        p = Path(preset)
+        if (p / "model.safetensors").exists():
+            return cls._from_directory(p, device)
+        for torch_file in ("pytorch_model.bin", "model.pt", "model.bin"):
+            if (p / torch_file).exists():
+                raise NotImplementedError(
+                    f"{p / torch_file}: pickled torch checkpoints are not ported yet "
+                    "(ROADMAP queue 1, item 10); convert to model.safetensors")
         cfg = get_preset(preset)
         return cls(cfg, init_params(cfg, seed).to(device))
+
+    @classmethod
+    def _from_directory(cls, ckpt_dir: Path, device) -> "DepthAnything3":
+        from da3slam_tpu_torch.models.convert import convert
+        from da3slam_tpu_torch.models.weights import load_file, unflatten_params
+
+        flat = load_file(ckpt_dir / "model.safetensors")
+        native = any("/" in k for k in flat)
+        probe = "patch_embed/kernel" if native else "patch_embed.proj.weight"
+        if sum(k.endswith(probe) for k in flat) > 1:
+            raise NotImplementedError(
+                f"{ckpt_dir}: a checkpoint of two backbones (the nested tier) is not ported "
+                "yet (ROADMAP queue 1, item 10)")
+        if (ckpt_dir / "config.json").exists():
+            cfg = config_from_json(ckpt_dir / "config.json")
+        elif native:
+            raise FileNotFoundError(f"{ckpt_dir}: a native checkpoint needs its config.json")
+        else:
+            cfg = get_preset(str(ckpt_dir))
+        if native:
+            tree = unflatten_params({k: v.float().numpy() for k, v in flat.items()})
+            sd = convert(tree)
+        else:
+            sd = {k: v.float() for k, v in flat.items()}
+        # the FFN flavour is visible in the tensors: trust them over a
+        # config.json that omits mlp_type (backbone blocks only:
+        # camera_head.mlp.fc1 would match too)
+        swiglu = any(".mlp.w12." in k and k.startswith("blocks.") for k in sd)
+        mlp = any(".mlp.fc1." in k and k.startswith("blocks.") for k in sd)
+        if swiglu != mlp:
+            cfg = cfg.with_overrides(mlp_type="swiglu" if swiglu else "mlp")
+        net = DA3Net(cfg)
+        # the released layerN_rn convs have no bias; DINOv2's mask_token serves
+        # only its training
+        for k in range(1, 5):
+            name = f"depth_head.scratch.layer{k}_rn.bias"
+            if name not in sd:
+                sd[name] = torch.zeros_like(net.state_dict()[name])
+        sd.pop("mask_token", None)
+        net.load_state_dict(sd, strict=True)
+        return cls(cfg, net.to(device))
+
+    def quantize(self, scheme: str = "w8a8") -> "DepthAnything3":
+        """A copy whose encoder QKV and MLP GEMMs run pre-quantized int8 × int8
+        (``ops/quant.py``, ``models/vit.py:quantize_encoder``); this model is
+        left as it is.  Inference only: the copy's quantized projections hold
+        no parameters."""
+        if scheme != "w8a8":
+            raise ValueError(f"unknown quantization scheme {scheme!r}")
+        net = copy.deepcopy(self.net)
+        vit.quantize_encoder(net)
+        return DepthAnything3(self.cfg, net, self.dtype)
 
     @torch.no_grad()
     def inference(

@@ -9,8 +9,12 @@ of all views' tokens.
 Parameters live in ``nn.Module``s named after the DINOv2 state dict
 (``blocks.{i}.attn.qkv``, ``blocks.{i}.ls1.gamma``, ...), kept in f32; each
 op casts them to the activation dtype, as the JAX package does.  The
-feed-forward is the plain MLP or, for the giant tier, DINOv2's SwiGLU; W8A8
-is not ported.
+feed-forward is the plain MLP or, for the giant tier, DINOv2's SwiGLU.
+
+W8A8: a block whose QKV and MLP projections are ``Int8Linear`` (made by
+``quantize_encoder``) runs them int8 × int8 → int32 on inputs that the
+layernorm and the MLP's nonlinearity quantize as they go (``ops/quant.py``);
+attention and its out-projection stay in the activation dtype.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from torch.utils.checkpoint import checkpoint
 
 from da3slam_tpu_torch.models.config import ModelConfig
 from da3slam_tpu_torch.ops.attention import multi_head_attention
+from da3slam_tpu_torch.ops.quant import int8_gemm, layer_norm_quant, quantize_rows, quantize_weight
 
 LN_EPS = 1e-6  # DINOv2's LayerNorm eps (torch's default is 1e-5)
 
@@ -54,6 +59,34 @@ class SwiGLU(nn.Module):
         super().__init__()
         self.w12 = nn.Linear(dim, 2 * hidden)
         self.w3 = nn.Linear(hidden, dim)
+
+
+class Int8Linear(nn.Module):
+    """A projection quantized once, per output channel: buffers ``w8
+    [in, out]`` int8, ``wscale [out]`` f32 and the float bias.  Inference
+    only: it holds no parameter."""
+
+    def __init__(self, lin: nn.Linear):
+        super().__init__()
+        wq = quantize_weight(lin.weight.detach().t())
+        self.register_buffer("w8", wq["w8"])
+        self.register_buffer("wscale", wq["wscale"])
+        self.register_buffer("bias", lin.bias.detach().clone())
+
+    def forward(self, x8: torch.Tensor, xscale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        return int8_gemm(x8, xscale, {"w8": self.w8, "wscale": self.wscale}, self.bias, dtype)
+
+
+def quantize_encoder(enc: "ViTEncoder") -> None:
+    """Swap every block's QKV and MLP projections (``fc1``/``fc2`` or
+    ``w12``/``w3``) for ``Int8Linear``, in place.  The attention
+    out-projection, norms, layer scales, embeddings and heads stay float.
+    ``w12`` is quantized per output column, which is what quantizing gate and
+    value apart gives."""
+    for blk in enc.blocks:
+        blk.attn.qkv = Int8Linear(blk.attn.qkv)
+        for name, lin in list(blk.mlp.named_children()):
+            setattr(blk.mlp, name, Int8Linear(lin))
 
 
 class Block(nn.Module):
@@ -131,11 +164,13 @@ def layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     return out.to(x.dtype)
 
 
-def _attention(attn: Attention, x: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """x: ``[B, S, D]`` → ``[B, S, D]``."""
-    B, S, D = x.shape
+def _attn_core(attn: Attention, qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Split → attention → out-projection, shared by the float and the W8A8
+    QKV producers.  qkv: ``[B, S, 3D]`` → ``[B, S, D]``."""
+    B, S, D3 = qkv.shape
+    D = D3 // 3
     hd = D // num_heads
-    q, k, v = linear(attn.qkv, x).split(D, dim=-1)
+    q, k, v = qkv.split(D, dim=-1)
     q, k, v = (t.reshape(B, S, num_heads, hd).contiguous() for t in (q, k, v))
     out = multi_head_attention(q, k, v).reshape(B, S, D)
     return linear(attn.proj, out)
@@ -148,14 +183,31 @@ def _mlp(mlp: Mlp | SwiGLU, x: torch.Tensor) -> torch.Tensor:
     return linear(mlp.fc2, F.gelu(linear(mlp.fc1, x), approximate="tanh"))
 
 
+def _mlp_w8a8(mlp: Mlp | SwiGLU, x8: torch.Tensor, xs: torch.Tensor, dtype) -> torch.Tensor:
+    """Both MLP GEMMs int8: the first takes the layernorm's fused quantize,
+    the second a quantize fused after the nonlinearity."""
+    if isinstance(mlp, SwiGLU):
+        gate, value = mlp.w12(x8, xs, dtype).chunk(2, dim=-1)
+        return mlp.w3(*quantize_rows(F.silu(gate) * value), dtype)
+    h8, hs = quantize_rows(F.gelu(mlp.fc1(x8, xs, dtype), approximate="tanh"))
+    return mlp.fc2(h8, hs, dtype)
+
+
 def _block(blk: Block, x: torch.Tensor, num_heads: int, cross_view: bool) -> torch.Tensor:
     """x: ``[N, S, D]`` (N views).  Cross-view blocks fold the views into one
     sequence."""
     N, S, D = x.shape
     h = x.reshape(1, N * S, D) if cross_view else x
-    a = _attention(blk.attn, layer_norm(blk.norm1, h), num_heads)
-    h = h + a * blk.ls1.gamma.to(x.dtype)
-    m = _mlp(blk.mlp, layer_norm(blk.norm2, h))
+    if isinstance(blk.attn.qkv, Int8Linear):  # made by quantize_encoder
+        x8, xs = layer_norm_quant(blk.norm1.weight, blk.norm1.bias, h, blk.norm1.eps)
+        a = _attn_core(blk.attn, blk.attn.qkv(x8, xs, x.dtype), num_heads)
+        h = h + a * blk.ls1.gamma.to(x.dtype)
+        m8, ms = layer_norm_quant(blk.norm2.weight, blk.norm2.bias, h, blk.norm2.eps)
+        m = _mlp_w8a8(blk.mlp, m8, ms, x.dtype)
+    else:
+        a = _attn_core(blk.attn, linear(blk.attn.qkv, layer_norm(blk.norm1, h)), num_heads)
+        h = h + a * blk.ls1.gamma.to(x.dtype)
+        m = _mlp(blk.mlp, layer_norm(blk.norm2, h))
     h = h + m * blk.ls2.gamma.to(x.dtype)
     return h.reshape(N, S, D)
 

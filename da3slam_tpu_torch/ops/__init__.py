@@ -1,1 +1,2 @@
-"""Attention (CUDA kernel + plain version), resize, ICP and registration."""
+"""Attention and the probe kernels (CUDA kernels + plain versions), int8
+quantization, resize, ICP and registration."""

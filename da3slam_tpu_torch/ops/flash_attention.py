@@ -63,6 +63,10 @@ _SOURCES = {
     "conv3x3.cu": {
         "conv3x3_fwd": [_P] * 4 + [_I] * 7 + [_P],
     },
+    # the int8 probe forward (ops/int8_flash.py)
+    "int8_flash_fwd.cu": {
+        "int8_flash_fwd": [_P] * 6 + [_I] * 4 + [_P],
+    },
 }
 
 

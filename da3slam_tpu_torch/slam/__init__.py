@@ -1,1 +1,2 @@
-"""Chunking, chunk alignment and the streaming SLAM solver."""
+"""Chunking, chunk alignment, the streaming SLAM solver and the device-resident
+pipeline."""

@@ -1,6 +1,6 @@
 """Kernel probes: the counterparts of the JAX package's ``tools/`` scripts that
 drive a hand-written kernel (``probe_conv3x3``, ``flash_nomax_probe``,
-``flash_bound_bisect``, ``flash_lab``).  Each is run as
+``flash_bound_bisect``, ``flash_lab``, ``int8_flash_probe``).  Each is run as
 ``python -m da3slam_tpu_torch.tools.<name> [args]``, on ``cuda`` unless
 ``--device cpu`` is given, and prints one line per case: the kernel's time
 over repeated launches, its rate, and its max abs error against the plain

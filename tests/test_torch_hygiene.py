@@ -1,5 +1,6 @@
 """The port stands alone: importing every ``da3slam_tpu_torch`` module (and
-``chip_smoke.py``) pulls in neither JAX nor the JAX package."""
+``chip_smoke.py``) pulls in neither JAX, nor the JAX package, nor the
+``safetensors`` package (the port reads and writes that format itself)."""
 
 import subprocess
 import sys
@@ -17,7 +18,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith(("jax.", "jaxlib", "da3slam_tpu.")) or m == "da3slam_tpu")
+             if m in ("jax", "da3slam_tpu", "safetensors")
+             or m.startswith(("jax.", "jaxlib", "da3slam_tpu.", "safetensors.")))
 print(len(names), bad)
 """
 
@@ -25,7 +27,7 @@ print(len(names), bad)
 def test_no_module_imports_jax_or_the_jax_package():
     out = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=ROOT, capture_output=True,
                          text=True, timeout=120, check=True).stdout.split()
-    assert int(out[0]) >= 42  # every module of the port was imported
+    assert int(out[0]) >= 47  # every module of the port was imported
     assert out[1:] == ["[]"]
 
 
@@ -34,5 +36,6 @@ def test_no_module_imports_jax_or_the_jax_package():
                          + ["chip_smoke.py"])
 def test_source_names_no_jax_import(path):
     src = (ROOT / path).read_text()
-    for banned in ("import jax", "from jax", "from da3slam_tpu.", "import da3slam_tpu\n"):
+    for banned in ("import jax", "from jax", "from da3slam_tpu.", "import da3slam_tpu\n",
+                   "import safetensors", "from safetensors"):
         assert banned not in src, f"{path} contains {banned!r}"

@@ -580,3 +580,82 @@ class TestWholeSlice:
             return
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main_slam.main(["--image_dir", str(tmp_path), "--headless"])
+
+
+def _load_precision_helpers():
+    """``tests/test_precision.py``'s world (rotation-walk trajectory, per-chunk
+    local frames, the f64 NumPy chain), loaded by path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "jax_test_precision", Path(__file__).with_name("test_precision.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class TestLongChainDrift:
+    """``tests/test_precision.py``'s 520-chunk chain (3641 frames) through the
+    port's ``chain_extrinsics`` and ``orthonormalize_rotation``, with the same
+    limits: the f32 carry, projected onto SO(3) each chunk, stays within
+    5e-6 of orthonormal and within 1 mm RMS of the f64 chain."""
+
+    @staticmethod
+    def torch_chain(chunks, first_global, reortho):
+        from da3slam_tpu_torch.core.transforms import orthonormalize_rotation
+
+        carry = T(first_global)
+        out, worst_ortho = [], 0.0
+        for k, E_local in enumerate(chunks):
+            Eg = alignment.chain_extrinsics(T(E_local), carry, 0)
+            if reortho:
+                Eg = torch.cat([orthonormalize_rotation(Eg[..., :3]), Eg[..., 3:]], dim=-1)
+            carry = Eg[-1]
+            R = carry[..., :3].double().numpy()
+            worst_ortho = max(worst_ortho, float(np.abs(R.T @ R - np.eye(3)).max()))
+            E_np = Eg.double().numpy()
+            out.append(E_np[1:] if k else E_np)
+        return np.concatenate(out), worst_ortho
+
+    def test_f32_carry_drift_vs_f64(self):
+        tp = _load_precision_helpers()
+        step = tp.FRAMES_PER_CHUNK - 1
+        gt = tp._rotation_walk_trajectory(tp.N_CHUNKS * step + 1)
+        chunks = tp._chunk_locals(gt, step, tp.FRAMES_PER_CHUNK)
+        assert len(chunks) == 520
+        first = chunks[0][0]
+        ref = tp._np_chain(chunks, first)
+        raw, raw_ortho = self.torch_chain(chunks, first, reortho=False)
+        fix, fix_ortho = self.torch_chain(chunks, first, reortho=True)
+        assert len(fix) == len(ref) == len(gt)
+        p_ref = tp._positions(ref)
+        ate_raw = float(np.sqrt(((tp._positions(raw) - p_ref) ** 2).sum(-1).mean()))
+        ate_fix = float(np.sqrt(((tp._positions(fix) - p_ref) ** 2).sum(-1).mean()))
+        print(f"\n520-chunk f32 drift vs f64 (port): raw ATE {ate_raw:.2e} "
+              f"(orthonormality {raw_ortho:.2e}) | reortho ATE {ate_fix:.2e} ({fix_ortho:.2e})")
+        assert fix_ortho < 5e-6
+        assert ate_fix < 1e-3
+        assert ate_fix < ate_raw * 1.5 + 1e-6
+
+    @pytest.mark.parametrize("method", ["icp", "irls"])
+    def test_aligner_projects_anchor(self, method):
+        """The port's aligner re-orthonormalises the carry: a previous pose
+        pushed ~1e-3 off SO(3) comes back on it (``tests/test_precision.py``'s
+        inputs and its 1e-5)."""
+        H = W = 32
+        n = 4
+        rng = np.random.default_rng(0)
+        K_ = np.array([[40.0, 0, W / 2], [0, 40.0, H / 2], [0, 0, 1]], np.float32)
+        depth = 2.0 + rng.random((H, W)).astype(np.float32) * 0.1
+        cur_E = np.stack([np.concatenate([np.eye(3), np.zeros((3, 1))], 1)] * n)
+        R_bad = np.eye(3, dtype=np.float32) + rng.normal(scale=1e-3, size=(3, 3)).astype(np.float32)
+        prev_global = np.concatenate([R_bad, np.zeros((3, 1), np.float32)], 1)
+        out = alignment.align_chunk_single_overlap(
+            prev_depth=T(depth), prev_conf=torch.ones(H, W), prev_K=T(K_),
+            cur_depth=T(np.stack([depth] * n)), cur_conf=torch.ones(n, H, W),
+            cur_K=T(np.stack([K_] * n)), cur_extrinsics=T(cur_E),
+            prev_overlap_global=T(prev_global),
+            config=alignment.AlignmentConfig(method=method))
+        R = out.extrinsics_global[0, :, :3].double().numpy()
+        assert np.abs(R_bad.T @ R_bad - np.eye(3)).max() > 1e-4
+        assert np.abs(R.T @ R - np.eye(3)).max() < 1e-5
