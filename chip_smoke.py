@@ -8,10 +8,13 @@ final line:
 1. env: the card (nvidia-smi name and power limit), torch and CUDA versions
 2. build: nvcc build of every kernel (flash attention, the flash probes, the
    3x3 conv, the int8 probe), with ptxas's registers, shared memory and spills
-   per kernel
+   per kernel; a register spill or a serialized wgmma in the forward's source
+   fails the phase
 3. kernel vs plain, bound and stable forwards: each kernel against its plain
-   torch version, both on the card, at the SMALL tier's shapes and, for the
-   bound forward, the LARGE tier's (CUDA-event times, median of a few runs)
+   torch version, both on the card, at the SMALL tier's shapes, for the bound
+   forward the LARGE tier's, and at lengths around the bf16 kernel's 64-row
+   warpgroup and 128-key tile (CUDA-event times, median of a few runs); the
+   bf16 cross-view call of either mode must run above the f32 pipe's peak rate
 4. backward vs plain: the dq and dk/dv kernels against the plain backward at
    the training and SLAM shapes; the plain version with its last key or q
    tile dropped must break each bound
@@ -52,7 +55,8 @@ final line:
 18. pipeline: ``run_streaming_slam`` over the same 31 frames (SMALL, chunk 15,
     overlap 1), whole and in one-window segments spilled to the host: equal,
     36 bound-forward launches each, and held to phase 16's ``main_slam``
-    trajectory (ICP, device-resident)
+    trajectory (ICP, device-resident); then a ``torch.profiler`` split of one
+    warm SMALL chunk
 
 Each driven path (7, 8, 9, 13, 14, 15, 16, 18) sets every launch count to 0
 just before it and reads them just after.  The ``kernels`` line gives each kernel's
@@ -70,6 +74,7 @@ import contextlib
 import copy
 import io
 import json
+import re
 import subprocess
 import sys
 import time
@@ -100,9 +105,12 @@ LARGE_CASES = [
     ("large_intra", torch.bfloat16, (15, 1301, 16, 64)),
     ("large_cross", torch.bfloat16, (1, 19515, 16, 64)),
 ]
+# lengths around the bf16 kernel's tiles (64 query rows a warpgroup, 128 a CTA,
+# 128 keys a stage): one row, one short of, exactly and one past each edge
+EDGE_CASES = [(f"edge{S}", torch.bfloat16, (2, S, 3, 64)) for S in (1, 63, 64, 65, 127, 128, 129)]
 # the stable forward adds the input where the bound forward underflows: q
 # scaled 30x (diffuse logits of norm ~350); there the bound kernel gives zeros
-STABLE_CASES = [(n, d, s, 1.0) for n, d, s in KERNEL_CASES] + [
+STABLE_CASES = [(n, d, s, 1.0) for n, d, s in KERNEL_CASES + EDGE_CASES] + [
     ("30x", torch.float32, (1, 1301, 6, 64), 30.0),
 ]
 # the backward at the training shapes (4 views at 504²: intra 4 x 1301,
@@ -122,9 +130,10 @@ BWD_CASES = [
 # bound for this forward (tests/test_flash_attention.py: 5e-5).  lse sums
 # every key's p, so a dropped or repeated key tile moves it by more than
 # LSE_TOL: dropping the ragged last tile (59 keys) at the cross shape moves
-# both lse and O by about 1e-2.  The stable kernel and its plain version
-# both round p against the running max over 16-key blocks, so they too
-# differ only in the order of f32 sums.
+# both lse and O by about 1e-2.  The stable bf16 kernel and its plain version
+# both round p against the running max after each 128-key tile, so they too
+# differ only in the order of f32 sums (the tensor cores' is not fmaf's); in
+# f32 p is not rounded, and the kernel's 16-key step only reorders sums.
 BF16_REL_TOL = 2.0 ** -6
 F32_TOL = 5e-5
 LSE_TOL = 1e-3
@@ -191,6 +200,10 @@ PIPELINE_TOL = 1e-4
 # The H100 SXM data sheet's dense peaks, for the roofline bounds
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
 PEAK_TF32_FLOPS = 495e12
+# exp2 on the special-function units: 16 a clock an SM, at the clock the bf16
+# peak implies (4096 FLOP a clock an SM): one exp2 per 256 peak bf16 FLOP.  An
+# attention forward needs B·H·S² of them, beside its 4·B·H·S²·D operations
+PEAK_EXP2_PER_S = PEAK_FLOPS[torch.bfloat16] / 256
 PEAK_BYTES_PER_S = 3.35e12
 # f32 card-vs-CPU parity: max |cuda - cpu| / max |cpu| per output / parameter
 MODEL_PARITY_TOL = 1e-3
@@ -372,6 +385,14 @@ def phase_build() -> None:
              for src, log in fa._Kernel.build_logs.items()}
     emit("build", seconds=fa._Kernel.build_seconds,
          libraries=[str(p.relative_to(ROOT)) for p in fa._Kernel.paths.values()], ptxas=ptxas)
+    # the forward's accumulators must stay in registers and its wgmmas
+    # asynchronous (a log exists when this process built the library, as it
+    # does in a fresh checkout)
+    log = fa._Kernel.build_logs.get("flash_attn_fwd.cu", "")
+    spills = [ln.strip() for ln in log.splitlines()
+              if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
+    if spills or "wgmma.mma_async instructions are serialized" in log:
+        fail(f"flash_attn_fwd.cu: register spills {spills} or serialized wgmma (ptxas C7515)")
 
 
 def _forward_case(fwd, ref, name, dtype, shape, scale, gen) -> dict:
@@ -394,6 +415,7 @@ def _forward_case(fwd, ref, name, dtype, shape, scale, gen) -> dict:
            "lse_tol": lse_tol, "ms": ms, "plain_ms": plain_ms,
            "library_ms": sdpa_ms(q, k, v), "library": "F.scaled_dot_product_attention",
            "kernel_tflops": 4 * B * H * S * S * D / ms / 1e9,
+           "exp2_floor_ms": B * H * S * S / PEAK_EXP2_PER_S * 1e3,
            **attention_roofline(shape, dtype, 4, n_tensors=4, n_rows=1)}
     if scale != 1.0:
         from da3slam_tpu_torch.ops.flash_attention import flash_attention_bound
@@ -406,6 +428,11 @@ def _forward_case(fwd, ref, name, dtype, shape, scale, gen) -> dict:
     if not lse_err <= lse_tol:
         fail(f"{fwd.__name__} lse disagrees with its plain version at {name}: "
              f"{lse_err} > {lse_tol}")
+    # above the f32 pipe's peak only the tensor cores can be at work
+    f32_peak_tflops = PEAK_FLOPS[torch.float32] / 1e12
+    if name == "cross" and dtype == torch.bfloat16 and not row["kernel_tflops"] > f32_peak_tflops:
+        fail(f"{fwd.__name__} runs the bf16 cross call at {row['kernel_tflops']} TFLOP/s, "
+             f"not above the f32 pipe's {f32_peak_tflops}: not on the tensor cores")
     return row
 
 
@@ -415,7 +442,7 @@ def phase_forwards() -> dict:
     rows = {}
     for kernel, fwd, ref, cases in (
         ("flash_attn_bound_fwd", fa.flash_attention_bound, fa.flash_attention_bound_reference,
-         [(n, d, s, 1.0) for n, d, s in KERNEL_CASES + LARGE_CASES]),
+         [(n, d, s, 1.0) for n, d, s in KERNEL_CASES + LARGE_CASES + EDGE_CASES]),
         ("flash_attn_stable_fwd", fa.flash_attention_stable, fa.flash_attention_stable_reference,
          STABLE_CASES),
     ):
@@ -1259,6 +1286,9 @@ def phase_pipeline(path_launches: dict, slam_runs: dict) -> None:
         fail(f"pipeline: whole and segmented runs differ by {seg_diff}")
     if slam_diff is None or not slam_diff <= PIPELINE_TOL:
         fail(f"pipeline: trajectory differs from main_slam's by {slam_diff}")
+    # where one warm SMALL chunk's device time goes (launch counts already read)
+    _profile("small_chunk_profile", lambda: model.inference(image=frames[:15]),
+             preset="small", frames=15, dtype="bfloat16")
 
 
 SOURCES = {

@@ -1,4 +1,4 @@
-"""Flash attention: four CUDA kernels, their plain versions, and the
+"""Flash attention: the CUDA kernels, their plain versions, and the
 differentiable entry point (counterpart of ``da3slam_tpu/ops/flash_attention.py``).
 
 Softmax runs in base 2, with log2(e)/√D folded into q (``q'``, rounded back
@@ -11,6 +11,10 @@ for the backward:
   plain accumulation: no running max, no rescale.
 - ``flash_attention_stable``: the online-softmax forward (``stable=True``,
   the public default): running max, rescale by exp2(m_prev − m_new).
+- Both forwards are two kernels each (``csrc/flash_attn_fwd.cu``), picked by
+  dtype alone: bf16 runs on the tensor cores (``wgmma`` for Q'·Kᵀ and P·V, K/V
+  through a TMA ring of 128-key tiles, q' and p bf16 operands), f32 on the FMA
+  pipes (exact f32 products: training and the f32 parity runs).
 - ``flash_attention_bwd_dq`` / ``flash_attention_bwd_dkv``: the
   FlashAttention-2 backward, p recomputed from lse.  lse is the same quantity
   under either forward, so one backward serves both.
@@ -37,10 +41,13 @@ import torch
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 HEAD_DIM = 64  # the kernels' compiled head width (every DA3 tier)
-STABLE_BLOCK_K = 16  # keys per online-softmax update in the stable kernel (kSub)
+# keys per online-softmax update of the stable forward: the bf16 kernel's key
+# tile (kTileK), where p is rounded against the running max.  The f32 kernel
+# steps by 16 keys, which only reorders f32 sums: p is not rounded there.
+STABLE_BLOCK_K = 128
 
 _CSRC = Path(__file__).parent / "csrc"
-_HEADERS = ("flash_common.cuh",)
+_HEADERS = ("flash_common.cuh", "flash_wgmma.cuh")
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "da3slam_tpu_torch"
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -123,12 +130,12 @@ def flash_attention_stable_reference(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain-torch stable forward on ``[B, S, H, D]``: ``(O, lse [B*H, S])``.
 
-    The online recurrence over blocks of ``STABLE_BLOCK_K`` keys, as the CUDA
-    kernel runs it: p is rounded to V's dtype against the running max m_b
+    The online recurrence over blocks of ``STABLE_BLOCK_K`` keys, as the bf16
+    CUDA kernel runs it: p is rounded to V's dtype against the running max m_b
     after block b, and each block's terms are carried to the final max by
     exp2(m_b − m_final), the product of the kernel's rescales.  The JAX
-    kernel's blocks are block_k keys; the math is the same at any split up
-    to where p is rounded.
+    kernel's blocks are block_k keys (128 by default, as here); the math is
+    the same at any split up to where p is rounded.
     """
     B, S, H, D = q.shape
     acc = _acc_dtype(q.dtype)
@@ -239,12 +246,20 @@ def _nvcc() -> str:
     return exe
 
 
+def nvcc_command(source: Path, out: Path, defines: tuple[str, ...] = ()) -> list[str]:
+    """The nvcc call that builds one ``csrc`` source into a shared library for
+    sm_90a (``-Xptxas -v``: registers, shared memory and spills go to stderr)."""
+    return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+            "-Xcompiler", "-fPIC", "-Xptxas", "-v", *(f"-D{d}" for d in defines),
+            "-o", str(out), str(source)]
+
+
 def build_kernel() -> dict[str, ctypes._CFuncPtr]:
     """Compile every ``csrc/*.cu`` for sm_90a and load it; returns the C entry
     points by name.
 
     One nvcc per source, all started together; each library is keyed by the
-    hash of its source and the shared header under ``build/da3slam_tpu_torch/``,
+    hash of its source and the shared headers under ``build/da3slam_tpu_torch/``,
     so a second call (or process) reuses it.
     """
     if _Kernel.fns:
@@ -260,11 +275,8 @@ def build_kernel() -> dict[str, ctypes._CFuncPtr]:
         if not out.exists():
             _BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            cmd = [
-                _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-                "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(path),
-            ]
-            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            proc = subprocess.Popen(nvcc_command(path, tmp), stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
         jobs.append((src, out, tmp, proc))
     failed = []
     for src, out, tmp, proc in jobs:  # wait for every nvcc before raising

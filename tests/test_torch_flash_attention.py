@@ -194,8 +194,9 @@ class TestDispatch:
 
 class TestStablePlainMatchesJax:
     # f32: same formula, same rounding points; the JAX kernel's online
-    # recurrence over 128-key blocks and the plain one over 16-key blocks
-    # differ by f32 rounding only (~1e-7 relative)
+    # recurrence and the plain one both step by 128 keys (STABLE_BLOCK_K, the
+    # bf16 CUDA kernel's key tile) and differ in the order of f32 sums only
+    # (~1e-7 relative)
     @pytest.mark.parametrize("S", [128, 300])
     def test_f32(self, S):
         q, k, v = rand_qkv(30, 2, S, 3)
@@ -206,16 +207,17 @@ class TestStablePlainMatchesJax:
 
     @pytest.mark.parametrize("S", [256, 300])
     def test_bf16(self, S):
-        # p is rounded to bf16 relative to a 128-key block's running max in
-        # JAX and to a 16-key block's here, so a p may round the other way;
-        # the output is rounded to bf16 (1 ulp = 2^-8 relative).  The bound
-        # scales with |O| as the smoke's does (chip_smoke.BF16_REL_TOL): a
-        # fixed 2e-2 would pass a dropped key tile.
+        # p is rounded to bf16 against the running max after each 128-key
+        # block in JAX and here alike, so the two round p at the same points
+        # and differ by f32 summation order and the output's rounding to bf16:
+        # one ulp, 2^-8·max|O| (a quarter of chip_smoke.BF16_REL_TOL, which
+        # they were held to while the plain version stepped by 16 keys)
+        assert STABLE_BLOCK_K == 128
         q, k, v = rand_qkv(31, 1, S, 2)
         o_j, _ = jax_forward(q, k, v, torch.bfloat16, stable=True)
         o_t, _ = flash_attention_stable(*torch_inputs(torch.bfloat16, q, k, v))
         np.testing.assert_allclose(o_t.float().numpy(), o_j,
-                                   atol=chip_smoke.BF16_REL_TOL * np.abs(o_j).max())
+                                   atol=2.0 ** -8 * np.abs(o_j).max())
 
     def test_plain_runs_the_kernels_blocked_recurrence(self):
         """The plain stable forward is the kernel's recurrence: in f64 (p not
@@ -339,6 +341,81 @@ class TestDroppedTileBreaksTheSmokeBound:
         errs = chip_smoke.dropped_tile_errors(q, k, v, g, lse, delta, grads)
         for name, err, ref in zip("qkv", errs, grads):
             assert err > chip_smoke.grad_bound(ref), f"d{name}: {err}"
+
+
+TILE_K = STABLE_BLOCK_K  # the bf16 kernel's key tile (kTileK in flash_attn_fwd.cu)
+
+
+def tile_model(q, k, v, stable, mask=True):
+    """The bf16 CUDA kernel's schedule in plain torch, one (batch, head) at a
+    time: whole key tiles of TILE_K keys, the rows past S zero-filled (as TMA
+    delivers them) and multiplied like any other; in the last tile p is forced
+    to 0 in columns >= S - k0 (``mask``) before the sum and the P·V product,
+    and the score to -inf before the stable mode's per-tile running max.
+    Returns (O, lse [B*H, S]).  ``mask=False`` is the kernel without that step.
+    """
+    B, S, H, D = q.shape
+    n_tiles = -(-S // TILE_K)
+    pad = n_tiles * TILE_K - S
+    qs = (q.float() * (LOG2E / D ** 0.5)).to(q.dtype).float()
+    kp = torch.nn.functional.pad(k.float(), (0, 0, 0, 0, 0, pad))
+    vp = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, pad))
+    o = torch.empty(B, S, H, D)
+    lse = torch.empty(B, H, S)
+    for b in range(B):
+        for h in range(H):
+            qh = qs[b, :, h]
+            if stable:
+                m = torch.full((S,), -1e30)
+            else:
+                m = qh.norm(dim=-1) * k[b, :, h].float().norm(dim=-1).max()
+            acc, den = torch.zeros(S, D), torch.zeros(S)
+            for t in range(n_tiles):
+                rows = slice(t * TILE_K, (t + 1) * TILE_K)
+                sc = qh @ kp[b, rows, h].T
+                if mask:
+                    sc[:, S - t * TILE_K:] = -torch.inf
+                if stable:
+                    m_new = torch.maximum(m, sc.amax(-1))
+                    alpha = torch.exp2(m - m_new)
+                    acc, den, m = acc * alpha[:, None], den * alpha, m_new
+                pt = torch.exp2(sc - m[:, None]).to(v.dtype).float()
+                acc = acc + pt @ vp[b, rows, h]
+                den = den + pt.sum(-1)
+            den = den.clamp_min(1e-30)
+            o[b, :, h] = acc / den[:, None]
+            lse[b, h] = m + torch.log2(den)
+    return o.to(q.dtype), lse.reshape(B * H, S)
+
+
+class TestTileModel:
+    """The bf16 kernel's tile schedule, modelled on the CPU, is the plain
+    versions' function; without the mask of the padded keys it is not."""
+
+    @pytest.mark.parametrize("stable", [False, True])
+    @pytest.mark.parametrize("S", [1, 127, 128, 129, 300])
+    def test_masked_tiles_match_plain(self, S, stable):
+        """Same rounding points (q', p per tile); the order of f32 sums
+        differs, and the bf16 output may round one ulp the other way."""
+        q, k, v = torch_inputs(torch.bfloat16, *rand_qkv(50 + S, 2, S, 2))
+        ref = flash_attention_stable_reference if stable else flash_attention_bound_reference
+        o_ref, lse_ref = ref(q, k, v)
+        o, lse = tile_model(q, k, v, stable)
+        torch.testing.assert_close(o.float(), o_ref.float(), rtol=0,
+                                   atol=2.0 ** -8 * o_ref.float().abs().max().item())
+        torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-5)
+
+    @pytest.mark.parametrize("stable", [False, True])
+    def test_unmasked_padding_breaks_the_bounds(self, stable):
+        """The padded-key trap: a zero-filled key scores 0, and exp2(0 - m) is
+        not 0.  At S = 129 the last tile holds one key and 127 zero rows:
+        left in, they move lse past chip_smoke.LSE_TOL and O past fwd_bound."""
+        q, k, v = torch_inputs(torch.bfloat16, *rand_qkv(60, 2, 129, 2))
+        ref = flash_attention_stable_reference if stable else flash_attention_bound_reference
+        o_ref, lse_ref = ref(q, k, v)
+        o, lse = tile_model(q, k, v, stable, mask=False)
+        assert (lse - lse_ref).abs().max().item() > chip_smoke.LSE_TOL
+        assert (o.float() - o_ref.float()).abs().max().item() > chip_smoke.fwd_bound(o_ref)
 
 
 @pytest.fixture
@@ -467,3 +544,62 @@ class TestKernelOnCard:
             out = multi_head_attention(q, k, v)
         assert out.grad_fn is None
         assert [f.launches - b for f, b in zip(COUNTED, before)] == [1, 0, 0, 0]
+
+    @pytest.mark.parametrize("stable", [False, True])
+    @pytest.mark.parametrize("H", [1, 16])
+    @pytest.mark.parametrize("B", [1, 3])
+    @pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 129, 1301])
+    def test_bf16_tile_edges_match_plain(self, card, S, B, H, stable):
+        """The tensor-core forwards around the 64-row warpgroup and the
+        128-key tile, O and lse, at the smoke's bounds."""
+        fwd, ref = ((flash_attention_stable, flash_attention_stable_reference) if stable
+                    else (flash_attention_bound, flash_attention_bound_reference))
+        q, k, v = torch_inputs(torch.bfloat16, *rand_qkv(70 + S, B, S, H), device=card)
+        before = fwd.launches
+        o, lse = fwd(q, k, v)
+        torch.cuda.synchronize()
+        assert fwd.launches == before + 1
+        o_ref, lse_ref = ref(q, k, v)
+        assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+        assert (o.float() - o_ref.float()).abs().max().item() <= chip_smoke.fwd_bound(o_ref)
+        assert (lse - lse_ref).abs().max().item() <= chip_smoke.LSE_TOL
+
+    @pytest.mark.parametrize("stable", [False, True])
+    def test_bounds_catch_a_dropped_last_tile(self, card, stable):
+        """At a ragged S the kernel is further from the plain version that
+        lost its last key tile (21 keys of 1301) than the bounds allow: a
+        kernel that skipped or mis-masked that tile would fail the case above.
+        O and lse are the same quantities in either mode, so the plain bound
+        forward over the first 1280 keys serves both."""
+        fwd = flash_attention_stable if stable else flash_attention_bound
+        q, k, v = torch_inputs(torch.bfloat16, *rand_qkv(80, 1, 1301, 2), device=card)
+        o, lse = fwd(q, k, v)
+        cut = 1300 // TILE_K * TILE_K
+        o_cut, lse_cut = flash_attention_bound_reference(q, k[:, :cut], v[:, :cut])
+        assert (o.float() - o_cut.float()).abs().max().item() > chip_smoke.fwd_bound(o_cut)
+        assert (lse - lse_cut).abs().max().item() > chip_smoke.LSE_TOL
+
+
+class TestStageTool:
+    """tools/flash_fwd_stages.py builds the forward's source at each design
+    stage and in cut-down copies; here only what needs no card."""
+
+    def test_parts_cut_lines_that_exist_once(self):
+        from da3slam_tpu_torch.ops import flash_attention as fa
+        from da3slam_tpu_torch.tools import flash_fwd_stages as tool
+
+        text = (fa._CSRC / tool.SOURCE).read_text()
+        for name, cuts in tool.PARTS.items():
+            for old, _ in cuts:
+                assert text.count(old) == 1, (name, old)
+        # the last stage is the kernel as the library builds it: the macros' defaults
+        for macro, value in zip(("STAGES", "CONSUMERS", "OVERLAP"), tool.STAGES["+overlap"]):
+            assert f"#define FLASH_FWD_{macro} {value} " in text
+
+    def test_refuses_to_run_without_a_card(self):
+        from da3slam_tpu_torch.tools import flash_fwd_stages as tool
+
+        if torch.cuda.is_available():
+            pytest.skip("a CUDA device is present")
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            tool.main([])
