@@ -8,29 +8,34 @@ final line:
 1. env: the card (nvidia-smi name and power limit), torch and CUDA versions
 2. build: nvcc build of every kernel (flash attention, the flash probes, the
    3x3 conv, the int8 probe), with ptxas's registers, shared memory and spills
-   per kernel; a register spill or a serialized wgmma in the forward's source
-   fails the phase
+   per kernel; a register spill or a serialized wgmma in the forward's or the
+   backward's source fails the phase
 3. kernel vs plain, bound and stable forwards: each kernel against its plain
    torch version, both on the card, at the SMALL tier's shapes, for the bound
    forward the LARGE tier's, and at lengths around the bf16 kernel's 64-row
    warpgroup and 128-key tile (CUDA-event times, median of a few runs); the
    bf16 cross-view call of either mode must run above the f32 pipe's peak rate
 4. backward vs plain: the dq and dk/dv kernels against the plain backward at
-   the training and SLAM shapes; the plain version with its last key or q
-   tile dropped must break each bound
+   the training shapes (f32 and bf16), the SLAM shape and bf16 lengths around
+   the tensor-core kernels' tiles; the plain version with its last key or q
+   tile dropped must break each bound; the bf16 cross-view calls must run
+   above the f32 pipe's peak rate
 5. model f32 parity: the SMALL forward on a 2-frame 518² chunk, CUDA f32
    (kernel) against the same weights on the CPU (plain attention)
 6. train grad parity: one SMALL window's loss gradients, card (kernels)
-   against CPU (plain), every parameter
+   against CPU (plain), every parameter, in f32 and with bf16 activations
 7. train: ``da3slam_tpu_torch.cli.train`` (SMALL, dp, 5 steps of 2 windows
-   of 4 views at 504²), counting the kernels' launches, then a
-   ``torch.profiler`` split of one step
+   of 4 views at 504², f32), counting the kernels' launches, then a
+   ``torch.profiler`` split of one step; train_bf16: the same run through
+   ``make_train_step(dtype=torch.bfloat16)`` (the bf16 forward, dq and dk/dv
+   kernels), its losses beside the f32 run's, and its profile
 8. flash_attention: the public entry point a user calls (``stable=True``, the
    default) forward and backward, counting the launches, and holding the
    output and the gradients against the plain stable forward and backward
 9. main path: ``da3slam_tpu_torch.cli.main_slam`` over 31 generated frames
    (SMALL, chunk 15, overlap 1: two steady chunks and the re-anchored tail),
-   counting the launches
+   counting the launches; then the same solver split into load, loop and
+   final fetch (host waits and times apart)
 10. conv3x3 vs plain: the 3x3 conv kernel against its plain version and beside
     ``F.conv2d`` at the DPT head's three shapes (bf16) and a ragged f32 shape;
     a dropped halo row or column must break the bound
@@ -49,7 +54,8 @@ final line:
     then a ``torch.profiler`` split of one warm chunk for each
 16. main_slam with ``Align.method: irls``: the main path again from a config
     file, device-resident, with the prefetcher's staging on and off, counting
-    the launches and the host's waits for the device
+    the launches and the host's waits for the device, whole and split into
+    load, loop and final fetch; the ICP loop must not wait at all
 17. checkpoint: SMALL written with the port's ``save_checkpoint`` and loaded
     with ``from_pretrained(dir)``: outputs bit-equal to the model that was saved
 18. pipeline: ``run_streaming_slam`` over the same 31 frames (SMALL, chunk 15,
@@ -58,7 +64,7 @@ final line:
     trajectory (ICP, device-resident); then a ``torch.profiler`` split of one
     warm SMALL chunk
 
-Each driven path (7, 8, 9, 13, 14, 15, 16, 18) sets every launch count to 0
+Each driven path (7 twice, 8, 9, 13, 14, 15, 16, 18) sets every launch count to 0
 just before it and reads them just after.  The ``kernels`` line gives each kernel's
 launches, error, time, plain version's time, roofline bound (from the shapes
 of this run, against the H100 SXM data sheet's peaks) and, where one PyTorch
@@ -114,14 +120,24 @@ STABLE_CASES = [(n, d, s, 1.0) for n, d, s in KERNEL_CASES + EDGE_CASES] + [
     ("30x", torch.float32, (1, 1301, 6, 64), 30.0),
 ]
 # the backward at the training shapes (4 views at 504²: intra 4 x 1301,
-# cross 5204) in f32, the training dtype, a ragged f32 case, and the SLAM
-# cross shape in bf16
+# cross 5204) and a ragged case in f32 (the CLI's training dtype) and in bf16
+# (make_train_step(dtype=torch.bfloat16)), the SLAM cross shape in bf16, and
+# bf16 lengths around the tensor-core kernels' tiles (64 own rows a warpgroup,
+# 128 a CTA, ring stages of 64 keys for dq and 32 q rows for dk/dv).  At S = 1
+# dq is 0 up to the order of f32 sums (dz = dO.v - dO.O with O = v), which no
+# relative bound can hold: tests/test_torch_flash_attention.py has that case
+# with an absolute floor.
 BWD_CASES = [
     ("train_intra", torch.float32, (4, 1301, 6, 64)),
     ("train_cross", torch.float32, (1, 5204, 6, 64)),
     ("ragged", torch.float32, (2, 300, 3, 64)),
     ("slam_cross", torch.bfloat16, (1, 19515, 6, 64)),
-]
+    ("train_intra_bf16", torch.bfloat16, (4, 1301, 6, 64)),
+    ("train_cross_bf16", torch.bfloat16, (1, 5204, 6, 64)),
+    ("ragged_bf16", torch.bfloat16, (2, 300, 3, 64)),
+] + [(f"edge{S}_bf16", torch.bfloat16, (2, S, 3, 64)) for S in (63, 64, 65, 127, 128, 129)]
+# the bf16 backward cases that must run above the f32 pipe's peak rate
+BWD_TENSOR_CORE_CASES = ("slam_cross", "train_cross_bf16")
 # Bounds on max |kernel - plain|, forwards.  Both round p to V's dtype at the
 # same place, so in bf16 they differ by the output's final rounding: at most
 # one bf16 ulp of the largest |O|.  The bound is 2^-6 * max |O|, which is 2-4
@@ -208,7 +224,29 @@ PEAK_BYTES_PER_S = 3.35e12
 # f32 card-vs-CPU parity: max |cuda - cpu| / max |cpu| per output / parameter
 MODEL_PARITY_TOL = 1e-3
 DPT_BIAS = 5.0  # keeps the DPT head's ReLU inputs off 0 (phase_train_grad_parity)
+# bf16 card-vs-CPU gradient parity (kernels against plain versions, the same
+# weights and window).  Both sides round activations to bf16 at the same
+# places, so they differ where a sum taken in another order tips a rounding
+# (2^-8 relative each time), compounded over 12 blocks and the DPT head, and a
+# parameter whose gradient is a small difference of large terms (the head's
+# last biases) shows it whole.  Held: the relative L2 error of the whole
+# gradient, and of each parameter's gradient.  For scale: the bf16 step's
+# gradient is 3e-2 (whole) and up to 0.7 (one bias) from the f32 step's in the
+# JAX package itself (tests/test_torch_train.py measures it).
+# Measured: 4.2e-3 and 6.8e-2 (the final norm's weight); the bounds are ~3x that.
+GRAD_PARITY_BF16_TOL = 1.5e-2
+GRAD_PARITY_BF16_PARAM_TOL = 0.2
+# the bf16 step's losses against the f32 step's on the same batches: bf16
+# activations move a loss by ~5e-3 relative at the tiny preset
+# (tests/test_torch_train.py); at SMALL, whose LayerScale starts at 1e-5,
+# 1.6e-3 at the first step and under 1e-4 after it
+TRAIN_BF16_LOSS_REL_TOL = 1e-2
 N_FRAMES = 31
+# Host waits the device-resident solver's loop may make over the 31 frames
+# (torch.cuda.set_sync_debug_mode): none with ICP; with IRLS, torch.linalg.svd
+# and det wait for the device, 21 times over the two aligned chunks
+ICP_LOOP_SYNCS = 0
+IRLS_LOOP_SYNCS = 21
 EXPECTED_LAUNCHES = 12 * 3  # 12 encoder blocks x 3 chunks
 ALIGN_ARGS = ["--model", "large", "--method", "irls", "--chunk_size", "15", "--overlap", "1",
               "--headless"]
@@ -219,8 +257,13 @@ TRAIN_ARGS = ["--preset", "small", "--mode", "dp", "--steps", str(TRAIN_STEPS),
               "--hw", str(TRAIN_HW), str(TRAIN_HW), "--log_every", "1"]
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; ``t_s`` is the time since the script started."""
+    print(json.dumps({"phase": phase, "t_s": round(time.perf_counter() - T_START, 2), **fields}),
+          flush=True)
 
 
 def fail(msg: str) -> None:
@@ -309,15 +352,20 @@ def sdpa_backward_ms(q, k, v, g, reps: int = 5) -> float:
 def dropped_tile_errors(q, k, v, do, lse, delta, grads) -> list[float]:
     """Max |Δ| of (dq, dk, dv) when the plain backward drops the last (ragged)
     key tile from dq and the last q tile from dk/dv: what a kernel with that
-    fault would show.  ``grads`` are the whole plain gradients."""
+    fault would show.  ``grads`` are the whole plain gradients.  The tiles are
+    the kernels': 64 rows, but 32 q rows for the bf16 dk/dv."""
     from da3slam_tpu_torch.ops.flash_attention import (
+        BWD_TILE,
+        BWD_TILE_DKV,
         flash_attention_bwd_dkv_reference,
         flash_attention_bwd_dq_reference,
     )
 
     B, S, H, _ = q.shape
-    cut = (S - 1) // 64 * 64
+    cut = (S - 1) // BWD_TILE * BWD_TILE
     dq_cut = flash_attention_bwd_dq_reference(q, k[:, :cut], v[:, :cut], do, lse, delta)
+    tile = BWD_TILE_DKV if q.dtype == torch.bfloat16 else BWD_TILE
+    cut = (S - 1) // tile * tile
 
     def rows(x):
         return x.reshape(B, H, S)[:, :, :cut].reshape(B * H, cut)
@@ -385,14 +433,15 @@ def phase_build() -> None:
              for src, log in fa._Kernel.build_logs.items()}
     emit("build", seconds=fa._Kernel.build_seconds,
          libraries=[str(p.relative_to(ROOT)) for p in fa._Kernel.paths.values()], ptxas=ptxas)
-    # the forward's accumulators must stay in registers and its wgmmas
-    # asynchronous (a log exists when this process built the library, as it
-    # does in a fresh checkout)
-    log = fa._Kernel.build_logs.get("flash_attn_fwd.cu", "")
-    spills = [ln.strip() for ln in log.splitlines()
-              if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
-    if spills or "wgmma.mma_async instructions are serialized" in log:
-        fail(f"flash_attn_fwd.cu: register spills {spills} or serialized wgmma (ptxas C7515)")
+    # the tensor-core kernels' accumulators must stay in registers and their
+    # wgmmas asynchronous (a log exists when this process built the library,
+    # as it does in a fresh checkout)
+    for src in ("flash_attn_fwd.cu", "flash_attn_bwd.cu"):
+        log = fa._Kernel.build_logs.get(src, "")
+        spills = [ln.strip() for ln in log.splitlines()
+                  if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
+        if spills or "wgmma.mma_async instructions are serialized" in log:
+            fail(f"{src}: register spills {spills} or serialized wgmma (ptxas C7513/C7515)")
 
 
 def _forward_case(fwd, ref, name, dtype, shape, scale, gen) -> dict:
@@ -502,6 +551,13 @@ def phase_backward() -> dict:
             if not cut_errs[gname] > tols[gname]:
                 fail(f"the {gname} bound at {name} ({tols[gname]}) would pass a dropped "
                      f"tile ({cut_errs[gname]})")
+        # above the f32 pipe's peak only the tensor cores can be at work
+        f32_peak_tflops = PEAK_FLOPS[torch.float32] / 1e12
+        if name in BWD_TENSOR_CORE_CASES and not min(row["dq_tflops"],
+                                                      row["dkv_tflops"]) > f32_peak_tflops:
+            fail(f"the bf16 backward runs {name} at {row['dq_tflops']} (dq) and "
+                 f"{row['dkv_tflops']} (dk/dv) TFLOP/s, not above the f32 pipe's "
+                 f"{f32_peak_tflops}: not on the tensor cores")
         # dq reads q, k, v, dO, lse, Δ and writes dq; dk/dv writes two tensors
         rows["flash_attn_bwd_dq"].append({
             **row, "max_abs_err": errs["dq"], "ms": dq_ms, "plain_ms": dq_plain,
@@ -555,9 +611,11 @@ def phase_model_parity() -> None:
         fail(f"model f32 parity beyond {MODEL_PARITY_TOL}: {errs}")
 
 
-def phase_train_grad_parity() -> None:
-    """One SMALL window (2 views at 280², f32): every parameter's gradient on
-    the card (kernels, TF32 off) against the CPU's (plain versions).
+def phase_train_grad_parity(dtype: torch.dtype = torch.float32) -> None:
+    """One SMALL window (2 views at 280²): every parameter's gradient on the
+    card (kernels, TF32 off) against the CPU's (plain versions), in f32 (max
+    relative error per parameter, MODEL_PARITY_TOL) or with bf16 activations
+    (relative L2 errors, GRAD_PARITY_BF16_TOL and GRAD_PARITY_BF16_PARAM_TOL).
 
     The weights are conditioned so that every gradient is a quantity and not
     f32 noise: the poses are relative to view 0, so with the init's
@@ -593,13 +651,14 @@ def phase_train_grad_parity() -> None:
     for dev, net in (("cpu", cpu), ("cuda", gpu)):
         b = {k: torch.from_numpy(x[0]).to(dev) for k, x in batch.items()}
         with highest_precision():  # the forward AND the backward: no TF32
-            loss = window_loss(net, cfg, b["images"], b["depth"], b["extrinsics"])
+            loss = window_loss(net, cfg, b["images"], b["depth"], b["extrinsics"], dtype)
             loss.backward()
         losses[dev] = loss.item()
         grads[dev] = {n: p.grad for n, p in net.named_parameters()}
     no_grad = {dev: sorted(n for n, g in gs.items() if g is None) for dev, gs in grads.items()}
     expected_none = sorted(n for n in grads["cpu"] if n.startswith(UNUSED_PARAMS))
     worst, worst_name, n_zero = 0.0, None, 0
+    worst_l2, worst_l2_name, sq_diff, sq_ref = 0.0, None, 0.0, 0.0
     for name, g_cpu in grads["cpu"].items():
         g_gpu = grads["cuda"][name]
         if g_cpu is None:
@@ -616,14 +675,28 @@ def phase_train_grad_parity() -> None:
             continue
         if diff / ref > worst:
             worst, worst_name = diff / ref, name
-    emit("train_grad_parity", preset="small", views=2, hw=[280, 280], dtype="float32",
+        d2, r2 = (g_gpu - g_cpu).double().square().sum().item(), g_cpu.double().square().sum().item()
+        sq_diff, sq_ref = sq_diff + d2, sq_ref + r2
+        if (d2 / r2) ** 0.5 > worst_l2:
+            worst_l2, worst_l2_name = (d2 / r2) ** 0.5, name
+    bf16 = dtype == torch.bfloat16
+    emit("train_grad_parity_bf16" if bf16 else "train_grad_parity", preset="small", views=2,
+         hw=[280, 280], dtype=str(dtype).replace("torch.", ""),
          loss=losses, params=len(grads["cpu"]), params_without_grad=no_grad["cuda"],
          params_zero_grad=n_zero, max_rel_err=worst, worst_param=worst_name,
-         tol=MODEL_PARITY_TOL)
+         rel_l2_err=(sq_diff / sq_ref) ** 0.5, worst_param_rel_l2_err=worst_l2,
+         worst_rel_l2_param=worst_l2_name,
+         tol={"rel_l2": GRAD_PARITY_BF16_TOL, "param_rel_l2": GRAD_PARITY_BF16_PARAM_TOL}
+         if bf16 else MODEL_PARITY_TOL)
     if no_grad["cuda"] != expected_none or no_grad["cpu"] != expected_none:
         fail(f"train grad parity: parameters without a gradient {no_grad}, expected only "
              f"{expected_none} (never read by the forward)")
-    if not worst <= MODEL_PARITY_TOL:
+    if bf16:
+        if not ((sq_diff / sq_ref) ** 0.5 <= GRAD_PARITY_BF16_TOL
+                and worst_l2 <= GRAD_PARITY_BF16_PARAM_TOL):
+            fail(f"bf16 train grad parity: relative L2 error {(sq_diff / sq_ref) ** 0.5} of the "
+                 f"whole gradient, {worst_l2} of {worst_l2_name}")
+    elif not worst <= MODEL_PARITY_TOL:
         fail(f"train grad parity: {worst_name} off by {worst} relative")
 
 
@@ -648,11 +721,21 @@ def _kernel_category(name: str) -> str:
 
 def _profile(phase: str, fn, **fields) -> None:
     """``torch.profiler`` over one warm call of ``fn`` (synchronised): wall,
-    device busy time, idle share and the busy time split by kind of kernel."""
+    device busy time, idle share and the busy time split by kind of kernel.
+    The profiler's own tracing of every host call stretches the wall time, and
+    a host-bound call's time spreads from one call to the next, so five more
+    warm calls are timed without it (``wall_ms_unprofiled``: their median)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()  # warm-up
     torch.cuda.synchronize()
+    unprofiled_runs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        unprofiled_runs.append((time.perf_counter() - t0) * 1e3)
+    unprofiled_ms = float(np.median(unprofiled_runs))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
@@ -673,22 +756,32 @@ def _profile(phase: str, fn, **fields) -> None:
         by_cat[cat] = by_cat.get(cat, 0.0) + us / 1e3
         top.append((us / 1e3, e.count, e.key[:90]))
     busy = sum(by_cat.values())
-    emit(phase, **fields, wall_ms=wall_ms, device_busy_ms=busy,
+    emit(phase, **fields, wall_ms=wall_ms, wall_ms_unprofiled=unprofiled_ms,
+         wall_ms_unprofiled_runs=unprofiled_runs, device_busy_ms=busy,
          idle_share=(1 - busy / wall_ms) if busy else None,
+         idle_share_unprofiled=(1 - busy / unprofiled_ms) if busy else None,
          split_ms=by_cat, split_share={k: v / busy for k, v in by_cat.items()} if busy else {},
          top_kernels=sorted(top, reverse=True)[:15])
 
 
-def _profile_step(cfg) -> None:
+def _profile_step(cfg, dtype: torch.dtype = torch.float32, phase: str = "train_profile") -> None:
     from da3slam_tpu_torch.parallel.train import make_train_step, synthetic_batch
 
-    init_fn, step_fn, place = make_train_step(cfg, "cuda")
+    init_fn, step_fn, place = make_train_step(cfg, "cuda", dtype=dtype)
     state = init_fn(seed=1)
     batch = place(synthetic_batch(cfg, TRAIN_BATCH, TRAIN_VIEWS, (TRAIN_HW, TRAIN_HW), seed=7))
-    _profile("train_profile", lambda: step_fn(state, batch))
+    _profile(phase, lambda: step_fn(state, batch), dtype=str(dtype).replace("torch.", ""))
 
 
-def phase_train(path_launches: dict) -> None:
+def train_expected_launches(cfg) -> dict:
+    """steps x windows x blocks of the bound forward, dq and dk/dv (windows run
+    one after another; remat off)."""
+    per_attention = TRAIN_STEPS * TRAIN_BATCH * cfg.depth
+    return expected_launches(flash_attn_bound_fwd=per_attention, flash_attn_bwd_dq=per_attention,
+                             flash_attn_bwd_dkv=per_attention)
+
+
+def phase_train(path_launches: dict) -> list[float]:
     from da3slam_tpu_torch.cli import train
     from da3slam_tpu_torch.models.config import get_preset
 
@@ -706,10 +799,7 @@ def phase_train(path_launches: dict) -> None:
     lines = [json.loads(ln) for ln in out.getvalue().splitlines() if ln.startswith("{")]
     losses = [ln["loss"] for ln in lines if "loss" in ln and "step" in ln]
     launches = path_launches["train"]
-    per_attention = TRAIN_STEPS * TRAIN_BATCH * cfg.depth
-    expected = expected_launches(flash_attn_bound_fwd=per_attention,
-                                 flash_attn_bwd_dq=per_attention,
-                                 flash_attn_bwd_dkv=per_attention)
+    expected = train_expected_launches(cfg)
     emit("train", args=TRAIN_ARGS, wall_s=wall, steps_per_s=TRAIN_STEPS / wall,
          windows_per_s=TRAIN_STEPS * TRAIN_BATCH / wall,
          max_memory_allocated_bytes=torch.cuda.max_memory_allocated(), losses=losses,
@@ -721,6 +811,50 @@ def phase_train(path_launches: dict) -> None:
     if launches != expected:
         fail(f"train: launches {launches} != {expected}")
     _profile_step(cfg)
+    return losses
+
+
+def phase_train_bf16(path_launches: dict, f32_losses: list[float]) -> None:
+    """The bf16 step, reached as in the JAX package: no CLI flag, but
+    ``make_train_step(dtype=torch.bfloat16)`` (f32 master weights and AdamW
+    state, bf16 activations).  The CLI's run again in bf16: SMALL, the same
+    seed, batches and learning rate, 5 steps of 2 windows of 4 views at 504²,
+    through the bf16 forward and the bf16 dq and dk/dv kernels; its losses
+    beside the f32 run's; then a ``torch.profiler`` split of one warm step."""
+    from da3slam_tpu_torch.models.config import get_preset
+    from da3slam_tpu_torch.parallel.train import make_train_step, synthetic_batch
+
+    cfg = get_preset("small")
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    with counted(path_launches, "train_bf16"):
+        t0 = time.perf_counter()
+        init_fn, step_fn, place = make_train_step(cfg, "cuda", dtype=torch.bfloat16)
+        state = init_fn(seed=0)
+        losses = []
+        for step in range(TRAIN_STEPS):
+            batch = place(synthetic_batch(cfg, TRAIN_BATCH, TRAIN_VIEWS, (TRAIN_HW, TRAIN_HW),
+                                          seed=step))
+            state, loss = step_fn(state, batch)
+            losses.append(float(loss))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = path_launches["train_bf16"]
+    expected = train_expected_launches(cfg)
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, f32_losses)]
+    emit("train_bf16", preset="small", steps=TRAIN_STEPS, batch=TRAIN_BATCH, views=TRAIN_VIEWS,
+         hw=TRAIN_HW, dtype="bfloat16", wall_s=wall, steps_per_s=TRAIN_STEPS / wall,
+         max_memory_allocated_bytes=torch.cuda.max_memory_allocated(), losses=losses,
+         f32_losses=f32_losses, loss_rel_diff=rel, loss_rel_tol=TRAIN_BF16_LOSS_REL_TOL,
+         param_dtypes=sorted({str(p.dtype) for p in state.net.parameters()}),
+         launches=launches, expected_launches=expected)
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        fail(f"train_bf16: losses {losses}")
+    if launches != expected:
+        fail(f"train_bf16: launches {launches} != {expected}")
+    if not max(rel) <= TRAIN_BF16_LOSS_REL_TOL:
+        fail(f"train_bf16: losses {losses} differ from the f32 run's {f32_losses} by {rel}")
+    _profile_step(cfg, torch.bfloat16, "train_bf16_profile")
 
 
 def phase_public_flash_attention(path_launches: dict) -> None:
@@ -795,7 +929,14 @@ def phase_main_path(path_launches: dict) -> None:
     expected = expected_launches(flash_attn_bound_fwd=EXPECTED_LAUNCHES)
     poses = np.loadtxt(out_dir / "camera_poses.txt", ndmin=2)
     ok = poses.shape == (N_FRAMES, 16) and np.isfinite(poses).all()
+    # the same solver split into load, loop and final fetch (launch counts
+    # already read).  The CLI's default config keeps the reference's host
+    # path: every chunk is fetched, so its loop waits by design
+    split = solver_split(main_slam.DEFAULT_CONFIG)
+    split.pop("poses")
     emit("main_path", frames=N_FRAMES, wall_s=wall, frames_per_s=N_FRAMES / wall,
+         wall_includes="building SMALL on the CPU, its upload, PNG decode, export",
+         split=split,
          max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
          poses_shape=list(poses.shape), poses_finite=bool(np.isfinite(poses).all()),
          kernel_launches=launches, expected_launches=expected)
@@ -1145,6 +1286,10 @@ def phase_w8a8(path_launches: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def _sync_warnings(caught) -> int:
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
 def _count_syncs(fn) -> int:
     """How many times ``fn`` made the host wait for the device, as
     ``torch.cuda.set_sync_debug_mode`` reports it."""
@@ -1155,17 +1300,72 @@ def _count_syncs(fn) -> int:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught)
+    return _sync_warnings(caught)
+
+
+def solver_split(config: dict) -> dict:
+    """``SLAMSolver`` built and run over the generated frames as
+    ``cli/main_slam.main`` builds and runs it, with the host's waits for the
+    device counted apart for its three parts: the load (the constructor: the
+    model made on the CPU and moved to the card, one blocking copy a tensor),
+    the loop (``run()`` up to ``_materialize``: PNG decode, inference and
+    alignment of every chunk) and the final fetch (``_materialize``).  The
+    load and the run are timed apart too; ``run_frames_per_s`` is the run's
+    rate with the model resident, PNG decode included."""
+    from da3slam_tpu_torch.slam.solver import SLAMSolver
+
+    marks = {}
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            solver = SLAMSolver(str(frames_dir()), config, viewer=None,
+                                device=torch.device("cuda"))
+            torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            marks["load"] = _sync_warnings(caught)
+            fetch = solver._materialize
+
+            def counted_fetch():
+                marks["loop"] = _sync_warnings(caught) - marks["load"]
+                fetch()
+
+            solver._materialize = counted_fetch
+            torch.cuda.set_sync_debug_mode("warn")
+            solver.run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        marks["fetch"] = _sync_warnings(caught) - marks["load"] - marks["loop"]
+        # the Python lines the waits after the load were reported at
+        where: dict[str, int] = {}
+        for w in [w for w in caught if "synchroniz" in str(w.message)][marks["load"]:]:
+            key = f"{Path(w.filename).name}:{w.lineno}"
+            where[key] = where.get(key, 0) + 1
+    poses, _ = solver.trajectory()
+    return {"host_syncs": marks, "loop_and_fetch_syncs_at": where, "load_s": t1 - t0,
+            "run_s": t2 - t1,
+            "run_frames_per_s": N_FRAMES / (t2 - t1), "poses": poses}
 
 
 def phase_main_slam_irls(path_launches: dict) -> dict:
     """The main path again from a config file: device-resident solver, IRLS
     alignment with the config's IRLS block, the prefetcher staging each next
-    chunk's upload on its side stream.  The host's waits for the device are
-    counted over the whole run for IRLS with and without the prefetcher and
-    for ICP: the differences are what IRLS (one ``torch.linalg.svd`` a step)
-    and the staging add."""
+    chunk's upload on its side stream; for IRLS with and without the
+    prefetcher and for ICP.  Each configuration runs twice.  Once whole,
+    through ``main_slam.main``: launch counts, wall time and every host wait,
+    which includes building SMALL on the CPU and moving it to the card (one
+    blocking copy a parameter tensor).  Once split (``solver_split``): the
+    waits of the load, the loop and the final fetch apart.  The
+    device-resident ICP loop must not wait at all, IRLS may add its
+    ``torch.linalg.svd``s and ``det``s (IRLS_LOOP_SYNCS), the final fetch is
+    one transfer, and both runs give the same trajectory."""
     from da3slam_tpu_torch.cli import main_slam
+    from da3slam_tpu_torch.inout import load_config
 
     def run(tag: str, method: str, prefetch: bool) -> dict:
         cfg = WORK / f"slam_{tag}.yaml"
@@ -1190,16 +1390,35 @@ def phase_main_slam_irls(path_launches: dict) -> dict:
             fail(f"main_slam {tag}: poses {poses.shape}, finite={np.isfinite(poses).all()}")
         if launches != expected_launches(flash_attn_bound_fwd=EXPECTED_LAUNCHES):
             fail(f"main_slam {tag}: launches {launches}")
+        split = solver_split(load_config(str(cfg)))
+        split["vs_whole_run_max_abs_diff"] = float(
+            np.abs(split.pop("poses").reshape(N_FRAMES, 16) - poses).max())
+        if not split["vs_whole_run_max_abs_diff"] <= PIPELINE_TOL:
+            fail(f"main_slam {tag}: the split run's trajectory differs from the whole run's "
+                 f"by {split['vs_whole_run_max_abs_diff']}")
         return {"method": method, "prefetch_and_staging": prefetch, "wall_s": wall,
                 "host_syncs": syncs, "poses_shape": list(poses.shape),
-                "bound_launches": launches["flash_attn_bound_fwd"]}
+                "bound_launches": launches["flash_attn_bound_fwd"], "split": split}
 
     runs = {"irls": run("irls", "irls", True),
             "irls_no_prefetch": run("irls_no_prefetch", "irls", False),
             "icp": run("icp", "icp", True)}
+    loop = {tag: r["split"]["host_syncs"]["loop"] for tag, r in runs.items()}
     emit("main_slam_irls", frames=N_FRAMES, runs=runs,
+         loop_syncs_limit={"icp": ICP_LOOP_SYNCS, "irls_over_icp": IRLS_LOOP_SYNCS},
          syncs_irls_adds_over_icp=runs["irls"]["host_syncs"] - runs["icp"]["host_syncs"],
          syncs_staging_adds=runs["irls"]["host_syncs"] - runs["irls_no_prefetch"]["host_syncs"])
+    if loop["icp"] > ICP_LOOP_SYNCS:
+        fail(f"main_slam icp: the device-resident loop made the host wait {loop['icp']} times "
+             f"(limit {ICP_LOOP_SYNCS})")
+    for tag in ("irls", "irls_no_prefetch"):
+        if loop[tag] - loop["icp"] > IRLS_LOOP_SYNCS:
+            fail(f"main_slam {tag}: IRLS adds {loop[tag] - loop['icp']} host waits to the loop "
+                 f"(limit {IRLS_LOOP_SYNCS})")
+    for tag, r in runs.items():
+        if r["split"]["host_syncs"]["fetch"] > 1:
+            fail(f"main_slam {tag}: the final fetch made {r['split']['host_syncs']['fetch']} "
+                 "transfers, not one")
     return runs
 
 
@@ -1278,8 +1497,12 @@ def phase_pipeline(path_launches: dict, slam_runs: dict) -> None:
     emit("pipeline", frames=N_FRAMES, preset="small", chunk_size=15, overlap=1, dtype="bfloat16",
          runs=stats, poses_shape=list(c2w.shape), poses_finite=bool(np.isfinite(c2w).all()),
          whole_vs_segmented_max_abs_diff=seg_diff, vs_main_slam_max_abs_diff=slam_diff,
-         tol=PIPELINE_TOL, main_slam_icp_host_syncs=slam_runs["icp"]["host_syncs"],
-         main_slam_icp_wall_s=slam_runs["icp"]["wall_s"])
+         tol=PIPELINE_TOL,
+         # beside it: main_slam's device-resident ICP run with its model
+         # resident too (it decodes the 31 PNGs, the pipeline gets an array)
+         main_slam_icp_loop_host_syncs=slam_runs["icp"]["split"]["host_syncs"]["loop"],
+         main_slam_icp_run_s=slam_runs["icp"]["split"]["run_s"],
+         main_slam_icp_run_frames_per_s=slam_runs["icp"]["split"]["run_frames_per_s"])
     if c2w.shape != (N_FRAMES, 4, 4) or not np.isfinite(c2w).all():
         fail(f"pipeline: poses {c2w.shape}, finite={np.isfinite(c2w).all()}")
     if not seg_diff <= PIPELINE_TOL:
@@ -1297,9 +1520,9 @@ SOURCES = {
     "flash_attn_stable_fwd": ("da3slam_tpu_torch/ops/csrc/flash_attn_fwd.cu",
                               "da3slam_tpu/ops/flash_attention.py:41", "cross"),
     "flash_attn_bwd_dq": ("da3slam_tpu_torch/ops/csrc/flash_attn_bwd.cu",
-                          "da3slam_tpu/ops/flash_attention.py:298", "train_cross"),
+                          "da3slam_tpu/ops/flash_attention.py:298", "train_cross_bf16"),
     "flash_attn_bwd_dkv": ("da3slam_tpu_torch/ops/csrc/flash_attn_bwd.cu",
-                           "da3slam_tpu/ops/flash_attention.py:340", "train_cross"),
+                           "da3slam_tpu/ops/flash_attention.py:340", "train_cross_bf16"),
     "conv3x3": ("da3slam_tpu_torch/ops/csrc/conv3x3.cu",
                 "da3slam_tpu/ops/conv3x3.py:74", "head1-large"),
     # the probes' headline is the first row at the tools' shape (variant A, old)
@@ -1323,8 +1546,10 @@ def main() -> None:
     rows.update(phase_backward())
     phase_model_parity()
     phase_train_grad_parity()
+    phase_train_grad_parity(torch.bfloat16)
     path_launches: dict = {}
-    phase_train(path_launches)
+    f32_losses = phase_train(path_launches)
+    phase_train_bf16(path_launches, f32_losses)
     phase_public_flash_attention(path_launches)
     phase_main_path(path_launches)
     rows.update(phase_conv3x3())

@@ -13,6 +13,13 @@ import argparse
 
 import torch
 
+# the run's configuration when no --config is given
+DEFAULT_CONFIG = {
+    "Weights": {"DA3": "small"},
+    "Model": {"chunk_size": 15, "overlap_size": 1, "keyframe_interval": 1,
+              "sleep_between_chunk": 0, "port": 8080},
+}
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="DA3-SLAM (PyTorch/CUDA port)")
@@ -35,11 +42,7 @@ def main(argv=None) -> None:
     from da3slam_tpu_torch.inout import load_config, save_camera_poses
     from da3slam_tpu_torch.slam.solver import SLAMSolver
 
-    config = load_config(args.config) if args.config else {
-        "Weights": {"DA3": "small"},
-        "Model": {"chunk_size": 15, "overlap_size": 1, "keyframe_interval": 1,
-                  "sleep_between_chunk": 0, "port": 8080},
-    }
+    config = load_config(args.config) if args.config else DEFAULT_CONFIG
     solver = SLAMSolver(args.image_dir, config, viewer=None, device=device)
     solver.run()
 

@@ -179,21 +179,6 @@ static_assert(kConsumers == 1 || kConsumers == 2, "one or two consumer warpgroup
 static_assert(kStages >= 2, "the ring needs two stages");
 static_assert(kSmemBytes <= 232448, "shared memory of one CTA");
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 pk = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&pk);
-}
-
-// exp2 as the one special-function instruction exp2f is built around.  exp2f
-// wraps it in a rescale that keeps results below 2^-126 as denormals (five
-// more instructions a score, on the slots the exp2 itself competes for);
-// here such a p is 0, 1e-38 from the plain version's.
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // One key tile's softmax step on a thread's 64 scores (rows r = 0, 1: t/4 and
 // + 8; s[4j + 2r + {0, 1}] at columns 8j + c2 + {0, 1}): p = round_bf16(exp2(s
 // - m)), 0 in columns >= n_valid (keys past S), as the A fragments of the P.V

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks of the tensor-core attention kernels: the
 // mbarrier, TMA and wgmma instructions as inline PTX, the shared-memory matrix
 // descriptor of a [rows, 64] bf16 tile in the 128-byte swizzle, and the host's
-// tensor-map encoder.  Nothing here is a kernel: flash_attn_fwd.cu composes
-// these.
+// tensor-map encoder.  Nothing here is a kernel: flash_attn_fwd.cu and
+// flash_attn_bwd.cu compose these.
 //
 // The one tile layout everything agrees on: a row is 64 bf16 = 128 bytes, rows
 // are 128 bytes apart, the tile starts on a 1024-byte boundary, and the 16-byte
@@ -26,6 +26,7 @@ constexpr int kGroupBytes = 1024;    // 8 rows: one swizzle atom, the descriptor
 // operand lists of inline asm over a register array
 #define HOPPER_REP8(X, a, o) \
   X(a[o]), X(a[o + 1]), X(a[o + 2]), X(a[o + 3]), X(a[o + 4]), X(a[o + 5]), X(a[o + 6]), X(a[o + 7])
+#define HOPPER_REP16(X, a) HOPPER_REP8(X, a, 0), HOPPER_REP8(X, a, 8)
 #define HOPPER_REP32(X, a) \
   HOPPER_REP8(X, a, 0), HOPPER_REP8(X, a, 8), HOPPER_REP8(X, a, 16), HOPPER_REP8(X, a, 24)
 #define HOPPER_REP64(X, a)                                                                     \
@@ -41,6 +42,23 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 // byte offset of 16-byte chunk `chunk` of row `row` inside a swizzled tile
 __device__ __forceinline__ uint32_t swizzled_chunk(int row, int chunk) {
   return static_cast<uint32_t>(row * kRowBytes + ((chunk ^ (row & 7)) << 4));
+}
+
+// ---- arithmetic ----------------------------------------------------------
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 pk = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&pk);
+}
+
+// exp2 as the one special-function instruction exp2f is built around.  exp2f
+// wraps it in a rescale that keeps results below 2^-126 as denormals (five
+// more instructions a score, on the slots the exp2 itself competes for);
+// here such a p is 0, 1e-38 from the plain version's.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // ---- mbarrier -------------------------------------------------------------
@@ -98,6 +116,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// `bytes` (a multiple of 16) of contiguous global memory into shared memory,
+// both 16-byte aligned; completion is counted in bytes on `bar`
+__device__ __forceinline__ void bulk_load_1d(uint32_t dst, const void* src, uint32_t bytes,
+                                             uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // shared-memory writes of this thread (generic proxy) become visible to wgmma
 // and TMA (async proxy)
 __device__ __forceinline__ void fence_proxy_async() {
@@ -152,6 +181,15 @@ __device__ __forceinline__ void pin(float (&x)[32]) {
 __device__ __forceinline__ void pin(uint32_t (&x)[32]) {
   asm volatile("" : HOPPER_REP32(HOPPER_RW_R, x)::"memory");
 }
+__device__ __forceinline__ void pin(float (&x)[16]) {
+  asm volatile("" : HOPPER_REP16(HOPPER_RW_F, x)::"memory");
+}
+__device__ __forceinline__ void pin(uint32_t (&x)[16]) {
+  asm volatile("" : HOPPER_REP16(HOPPER_RW_R, x)::"memory");
+}
+__device__ __forceinline__ void pin(uint32_t (&x)[8]) {
+  asm volatile("" : HOPPER_REP8(HOPPER_RW_R, x, 0)::"memory");
+}
 
 // d[64 x 128] (+)= A[64 x 16] · B[128 x 16]ᵀ, bf16 in, f32 out; A and B
 // K-major tiles in shared memory.  accumulate = 0 overwrites d.  Thread t of
@@ -175,6 +213,41 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t des
       "%64, %65, p, 1, 1, 0, 0;\n"
       "}\n"
       : HOPPER_REP64(HOPPER_RW_F, d)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d[64 x 64] (+)= A[64 x 16] · B[64 x 16]ᵀ: the same with 64 columns (d[4j ..
+// 4j + 3] for j < 8).
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
+                                                   uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : HOPPER_REP32(HOPPER_RW_F, d)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d[64 x 32] (+)= A[64 x 16] · B[32 x 16]ᵀ: 32 columns (d[4j .. 4j + 3] for j < 4)
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t desc_a,
+                                                   uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : HOPPER_REP16(HOPPER_RW_F, d)
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 

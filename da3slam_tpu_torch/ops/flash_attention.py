@@ -17,7 +17,11 @@ for the backward:
   pipes (exact f32 products: training and the f32 parity runs).
 - ``flash_attention_bwd_dq`` / ``flash_attention_bwd_dkv``: the
   FlashAttention-2 backward, p recomputed from lse.  lse is the same quantity
-  under either forward, so one backward serves both.
+  under either forward, so one backward serves both.  Two kernels each too
+  (``csrc/flash_attn_bwd.cu``), by dtype alone: bf16 on the tensor cores (a
+  CTA owns 128 q rows or keys, the other side's 64-row tiles come through a
+  TMA ring, the bf16-rounded p and dz are the A fragments of the gradient
+  products), f32 on the FMA pipes.
 
 Each wrapper dispatches on where its inputs live: a CUDA tensor launches the
 hand-written kernel (``csrc/*.cu``, built with nvcc on first use and bound
@@ -41,6 +45,10 @@ import torch
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 HEAD_DIM = 64  # the kernels' compiled head width (every DA3 tier)
+# the bf16 backward kernels' ring tiles: 64 keys a stage for dq, 32 q rows for
+# dk/dv, whose (lse, Δ) pairs lie in rows padded to multiples of 64 (kPairTile)
+BWD_TILE = 64
+BWD_TILE_DKV = 32
 # keys per online-softmax update of the stable forward: the bf16 kernel's key
 # tile (kTileK), where p is rounded against the running max.  The f32 kernel
 # steps by 16 keys, which only reorders f32 sums: p is not rounded there.
@@ -58,8 +66,8 @@ _SOURCES = {
         "flash_attn_stable_fwd": [_P] * 5 + [_I] * 5 + [_F, _P],
     },
     "flash_attn_bwd.cu": {
-        "flash_attn_bwd_dq": [_P] * 7 + [_I] * 5 + [_F, _F, _P],
-        "flash_attn_bwd_dkv": [_P] * 8 + [_I] * 5 + [_F, _F, _P],
+        "flash_attn_bwd_dq": [_P] * 8 + [_I] * 5 + [_F, _F, _P],
+        "flash_attn_bwd_dkv": [_P] * 10 + [_I] * 5 + [_F, _F, _P],
     },
     # the probe forwards (ops/flash_probes.py) and the 3x3 conv (ops/conv3x3.py)
     "flash_probe_fwd.cu": {
@@ -384,6 +392,17 @@ def flash_attention_stable(
     return o, lse
 
 
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _folded_q_workspace(q: torch.Tensor) -> torch.Tensor | None:
+    """Where the bf16 backward kernels' pre-pass writes q' for TMA to load
+    (the f32 kernels fold q as they stage it and take none).  The caller holds
+    it until the launch is queued: the allocator reuses it in stream order."""
+    return torch.empty_like(q) if q.dtype == torch.bfloat16 else None
+
+
 def flash_attention_bwd_dq(q, k, v, do, lse, delta) -> torch.Tensor:
     """dq on ``[B, S, H, D]`` from the saved lse and Δ (both ``[B*H, S]`` f32)."""
     if _on_cpu(q, k, v, do, lse, delta):
@@ -392,9 +411,10 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta) -> torch.Tensor:
     _check_rows(q, lse, delta)
     B, S, H, D = q.shape
     dq = torch.empty_like(q)
+    qs = _folded_q_workspace(q)
     launch_kernel("flash_attn_bwd_dq", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, S, H, D,
-                  DTYPE_CODES[q.dtype], _scale(D), 1.0 / D ** 0.5)
+                  do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), _ptr(qs),
+                  B, S, H, D, DTYPE_CODES[q.dtype], _scale(D), 1.0 / D ** 0.5)
     flash_attention_bwd_dq.launches += 1
     return dq
 
@@ -408,9 +428,15 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta) -> tuple[torch.Tensor, torc
     B, S, H, D = q.shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    qs = _folded_q_workspace(q)
+    pairs = None
+    if q.dtype == torch.bfloat16:
+        # (lse, Δ) pairs in rows padded to whole tiles, laid out by the kernel's pre-pass
+        pairs = torch.empty(B * H, -(-S // BWD_TILE) * BWD_TILE, 2, dtype=torch.float32,
+                            device=q.device)
     launch_kernel("flash_attn_bwd_dkv", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                  B, S, H, D, DTYPE_CODES[q.dtype], _scale(D), LN2)
+                  _ptr(qs), _ptr(pairs), B, S, H, D, DTYPE_CODES[q.dtype], _scale(D), LN2)
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 

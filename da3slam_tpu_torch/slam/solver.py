@@ -8,9 +8,14 @@ full-size tail window.  Alignment runs on ``device``.
 
 With ``Model.device_resident`` the dense maps stay on the device, alignment
 consumes them there, and per-chunk poses and stats stay device tensors until
-one fetch at the end of the run: the loop never waits on the device.
-Otherwise every chunk's prediction is fetched to numpy (and uploaded again
-for alignment), as the reference does.
+one packed fetch at the end of the run (``_materialize``).  Measured on an
+H100 over 31 frames (``chip_smoke.py``, ``solver_split``): with ICP the loop
+makes the host wait 0 times and the fetch once; IRLS adds 20 waits, all at
+``torch.linalg.svd`` in ``ops/registration.py``.  The one wait-heavy part is
+outside the loop: building the model moves each parameter tensor to the
+device with a blocking copy (249 for SMALL).  Otherwise every chunk's
+prediction is fetched to numpy (and uploaded again for alignment), as the
+reference does: 50 waits over the same frames.
 
 Loop closure and the viewer are not ported: a config or argument that
 enables either is rejected.
@@ -250,20 +255,26 @@ class SLAMSolver:
         self.chunk_count += 1
 
     def _materialize(self) -> None:
-        """End of run: one device→host transfer for every deferred stat and
-        every chunk's global poses + intrinsics (device-resident mode)."""
-        if self._deferred_stats:
-            vals = torch.stack([
-                torch.stack([s.float(), f.float(), r.float()])
-                for _, s, f, r in self._deferred_stats
-            ]).cpu().numpy()
-            for (tag, *_), (s, f, r) in zip(self._deferred_stats, vals):
-                print(f"  {tag}: depth_scale={s:.4f} fitness={f:.4f} inlier_rmse={r:.5f}")
-            self._deferred_stats.clear()
-        for r in self.results:
-            for key in ("extrinsics_global", "intrinsics"):
-                if isinstance(r[key], torch.Tensor):
-                    r[key] = r[key].cpu().numpy()
+        """End of run (device-resident mode): every deferred stat and every
+        chunk's global poses and intrinsics in ONE device→host transfer.
+
+        They are packed into one f64 buffer on the device: f64 holds every f32
+        exactly, so each array comes back bit for bit in its own dtype."""
+        stats = [x.float() for _, s, f, r in self._deferred_stats for x in (s, f, r)]
+        slots = [(r, key) for r in self.results for key in ("extrinsics_global", "intrinsics")
+                 if isinstance(r[key], torch.Tensor)]
+        tensors = stats + [r[key] for r, key in slots]
+        if not tensors:
+            return
+        packed = torch.cat([t.detach().reshape(-1).to(torch.float64) for t in tensors]).cpu()
+        parts = [part.reshape(t.shape).to(t.dtype).numpy()
+                 for part, t in zip(packed.split([t.numel() for t in tensors]), tensors)]
+        for i, (tag, *_) in enumerate(self._deferred_stats):
+            s, f, r = (p.item() for p in parts[3 * i: 3 * i + 3])
+            print(f"  {tag}: depth_scale={s:.4f} fitness={f:.4f} inlier_rmse={r:.5f}")
+        self._deferred_stats.clear()
+        for (r, key), arr in zip(slots, parts[len(stats):]):
+            r[key] = arr
 
     def run(self) -> None:
         image_paths = load_image_paths(self.image_dir)

@@ -22,6 +22,8 @@ import torch
 import chip_smoke
 from da3slam_tpu_torch.ops.attention import multi_head_attention
 from da3slam_tpu_torch.ops.flash_attention import (
+    BWD_TILE,
+    BWD_TILE_DKV,
     LN2,
     LOG2E,
     STABLE_BLOCK_K,
@@ -270,7 +272,7 @@ class TestStablePlainMatchesJax:
 
 class TestBackwardPlainMatchesJax:
     @pytest.mark.parametrize("S,dtype", [(128, torch.float32), (300, torch.float32),
-                                         (256, torch.bfloat16)])
+                                         (256, torch.bfloat16), (300, torch.bfloat16)])
     def test_matches_jax_vjp(self, S, dtype):
         """f32: the same sums in another order, ≤ 1e-6 measured; 1e-5.  bf16:
         dz, p and the outputs are rounded to bf16 at the same points, and a
@@ -418,6 +420,117 @@ class TestTileModel:
         assert (o.float() - o_ref.float()).abs().max().item() > chip_smoke.fwd_bound(o_ref)
 
 
+def anti_aligned_inputs(S, B=1, H=2, seed=90):
+    """bf16 q, k, v, dO whose every logit is near -216 (q opposite to keys that
+    all point one way), with O, lse and Δ from the plain stable forward (the
+    bound forward's shift would underflow every p): lse ≈ -216 + log2 S, so a
+    zero-filled key's p = exp2(0 - lse) overflows f32."""
+    rng = np.random.default_rng(seed)
+    u = np.full(64, 0.125, np.float32)
+    k = u + 0.01 * rng.normal(size=(B, S, H, 64)).astype(np.float32)
+    q = -1200.0 * u + rng.normal(size=(B, S, H, 64)).astype(np.float32)
+    v, g = (rng.normal(size=(B, S, H, 64)).astype(np.float32) for _ in range(2))
+    q, k, v, g = torch_inputs(torch.bfloat16, q, k, v, g)
+    o, lse = flash_attention_stable_reference(q, k, v)
+    return q, k, v, g, lse, attention_delta(o, g)
+
+
+# a gradient that is 0 but for the order of f32 sums (dq of a one-key sequence)
+DQ_NOISE = 1e-5
+
+
+def bwd_tile_model(q, k, v, do, lse, delta, mask=True):
+    """The bf16 backward kernels' schedule in plain torch, one (batch, head)
+    at a time: the other side in whole tiles (BWD_TILE keys for dq,
+    BWD_TILE_DKV q rows for dk/dv), the rows past S zero-filled (as TMA
+    delivers them) and multiplied like any other; p and dz
+    rounded to bf16 a tile, the gradients summed in f32 over the tiles.  dq
+    forces the scores of the last tile's columns >= S - k0 to -inf (``mask``),
+    dk/dv reads lse = +inf and Δ = 0 for its padded q rows (``mask``; 0 and 0
+    without).  Returns (dq, dk, dv).  ``mask=False`` is the kernels without
+    those steps."""
+    B, S, H, D = q.shape
+    pad = -(-S // BWD_TILE) * BWD_TILE - S  # BWD_TILE_DKV divides BWD_TILE
+
+    def padded(x):
+        return torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, pad))
+
+    def rows(x, value):
+        return torch.nn.functional.pad(x.reshape(B, H, S), (0, pad), value=value)
+
+    qs = (q.float() * (LOG2E / D ** 0.5)).to(q.dtype).float()
+    qp, kp, vp, gp = padded(qs.to(q.dtype)), padded(k), padded(v), padded(do)
+    lse, delta = lse.reshape(B, H, S), delta.reshape(B, H, S)
+    lse_p, delta_p = rows(lse, torch.inf if mask else 0.0), rows(delta, 0.0)
+    dq, dk, dv = (torch.zeros(B, S, H, D) for _ in range(3))
+    for b in range(B):
+        for h in range(H):
+            # dq: own rows are q, a tile holds keys
+            for t in range(-(-S // BWD_TILE)):
+                tile = slice(t * BWD_TILE, (t + 1) * BWD_TILE)
+                sc = qs[b, :, h] @ kp[b, tile, h].T
+                if mask:
+                    sc[:, S - t * BWD_TILE:] = -torch.inf
+                p = torch.exp2(sc - lse[b, h][:, None])
+                dz = p * (do[b, :, h].float() @ vp[b, tile, h].T - delta[b, h][:, None])
+                dq[b, :, h] += dz.to(q.dtype).float() @ kp[b, tile, h]
+            # dk/dv: own rows are keys, a tile holds q rows
+            for t in range(-(-S // BWD_TILE_DKV)):
+                tile = slice(t * BWD_TILE_DKV, (t + 1) * BWD_TILE_DKV)
+                sc = k[b, :, h].float() @ qp[b, tile, h].T
+                p = torch.exp2(sc - lse_p[b, h, tile][None, :])
+                dz = p * (v[b, :, h].float() @ gp[b, tile, h].T - delta_p[b, h, tile][None, :])
+                dv[b, :, h] += p.to(q.dtype).float() @ gp[b, tile, h]
+                dk[b, :, h] += dz.to(q.dtype).float() @ qp[b, tile, h]
+    return (dq / D ** 0.5).to(q.dtype), (LN2 * dk).to(q.dtype), dv.to(q.dtype)
+
+
+class TestBackwardTileModel:
+    """The bf16 backward kernels' tile schedule, modelled on the CPU, is the
+    plain versions' function; the padded rows multiply zeros, so their mask
+    matters exactly where p overflows."""
+
+    @pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 128, 129, 300])
+    def test_masked_tiles_match_plain(self, S):
+        """Same rounding points (q', p and dz a tile); the f32 sums run tile by
+        tile, and a bf16 output may round one step the other way: 2^-7·max|g|
+        (TestBackwardPlainMatchesJax's bound).  At S = 1 dq is pure cancellation
+        (dz = dO·v - dO·O with O = v): 0 up to f32 noise, held to DQ_NOISE."""
+        q, k, v, g = torch_inputs(torch.bfloat16, *rand_qkv(150 + S, 2, S, 2),
+                                  rand_grad(151 + S, (2, S, 2, 64)))
+        o, lse = flash_attention_bound_reference(q, k, v)
+        delta = attention_delta(o, g)
+        refs = flash_attention_backward_reference(q, k, v, o, lse, g)
+        for name, a, r in zip("qkv", bwd_tile_model(q, k, v, g, lse, delta), refs):
+            torch.testing.assert_close(
+                a.float(), r.float(), rtol=0,
+                atol=max(2.0 ** -7 * r.float().abs().max().item(), DQ_NOISE),
+                msg=lambda m, name=name: f"d{name}: {m}")
+
+    @pytest.mark.parametrize("S", [65, 129, 300])
+    def test_masked_tiles_survive_overflowing_padding(self, S):
+        """Every logit near -216: the masked model is still the plain backward."""
+        q, k, v, g, lse, delta = anti_aligned_inputs(S)
+        refs = (flash_attention_bwd_dq_reference(q, k, v, g, lse, delta),
+                *flash_attention_bwd_dkv_reference(q, k, v, g, lse, delta))
+        for name, a, r in zip("qkv", bwd_tile_model(q, k, v, g, lse, delta), refs):
+            assert torch.isfinite(a).all(), f"d{name}"
+            assert (a.float() - r.float()).abs().max().item() <= chip_smoke.grad_bound(r), name
+
+    def test_unmasked_padding_breaks_the_bound(self):
+        """The padded-key trap of dq: a zero-filled key scores 0, p = exp2(0 -
+        lse) overflows, dz is ±inf, and inf times the key's zeros is NaN in
+        every row.  dk/dv's padded q rows read lse = Δ = 0 without the mask:
+        p = 1 and dz = 0 against zero rows, which adds nothing, so their mask
+        guards only against what lies past the end of lse."""
+        q, k, v, g, lse, delta = anti_aligned_inputs(129)
+        ref = flash_attention_bwd_dq_reference(q, k, v, g, lse, delta)
+        dq, dk, dv = bwd_tile_model(q, k, v, g, lse, delta, mask=False)
+        err = (dq.float() - ref.float()).abs().max().item()
+        assert not err <= chip_smoke.grad_bound(ref)  # NaN
+        assert torch.isfinite(dk).all() and torch.isfinite(dv).all()
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -436,6 +549,8 @@ BWD_CARD_CASES = [
     (torch.float32, (1, 63, 1, 64)),
     (torch.float32, (4, 1301, 2, 64)),  # the training intra-view length
     (torch.bfloat16, (1, 777, 6, 64)),
+    (torch.bfloat16, (4, 1301, 6, 64)),  # the bf16 step's intra-view call
+    (torch.bfloat16, (1, 5204, 6, 64)),  # and its cross-view call
 ]
 
 
@@ -564,6 +679,53 @@ class TestKernelOnCard:
         assert (o.float() - o_ref.float()).abs().max().item() <= chip_smoke.fwd_bound(o_ref)
         assert (lse - lse_ref).abs().max().item() <= chip_smoke.LSE_TOL
 
+    @pytest.mark.parametrize("H", [1, 16])
+    @pytest.mark.parametrize("B", [1, 3])
+    @pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 128, 129, 1301])
+    def test_bf16_backward_tile_edges_match_plain(self, card, S, B, H):
+        """The tensor-core dq and dk/dv kernels around their 64-row warpgroups,
+        128-row CTAs and 64- and 32-row ring tiles, at the smoke's bound (dq at S = 1
+        is cancellation noise around 0: DQ_NOISE)."""
+        q, k, v = torch_inputs(torch.bfloat16, *rand_qkv(170 + S, B, S, H), device=card)
+        g = torch.from_numpy(rand_grad(171 + S, (B, S, H, 64))).to(card, torch.bfloat16)
+        o, lse = flash_attention_bound(q, k, v)
+        before = (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches)
+        grads = flash_attention_backward(q, k, v, o, lse, g)
+        torch.cuda.synchronize()
+        assert (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches) == \
+            (before[0] + 1, before[1] + 1)
+        refs = flash_attention_backward_reference(q, k, v, o, lse, g)
+        for name, a, r in zip("qkv", grads, refs):
+            assert a.dtype == torch.bfloat16 and torch.isfinite(a).all(), f"d{name}"
+            err = (a.float() - r.float()).abs().max().item()
+            assert err <= max(chip_smoke.grad_bound(r), DQ_NOISE), f"d{name}: {err}"
+
+    @pytest.mark.parametrize("S", [65, 129, 300])
+    def test_bf16_backward_masks_overflowing_padding(self, card, S):
+        """Every logit near -216, so a padded key's p overflows: the kernels'
+        gradients stay finite and within the bound of the plain ones."""
+        q, k, v, g, lse, delta = (t.to(card) for t in anti_aligned_inputs(S))
+        grads = (flash_attention_bwd_dq(q, k, v, g, lse, delta),
+                 *flash_attention_bwd_dkv(q, k, v, g, lse, delta))
+        refs = (flash_attention_bwd_dq_reference(q, k, v, g, lse, delta),
+                *flash_attention_bwd_dkv_reference(q, k, v, g, lse, delta))
+        for name, a, r in zip("qkv", grads, refs):
+            assert torch.isfinite(a).all(), f"d{name}"
+            err = (a.float() - r.float()).abs().max().item()
+            assert err <= chip_smoke.grad_bound(r), f"d{name}: {err}"
+
+    def test_bf16_backward_bound_catches_a_dropped_tile(self, card):
+        """At a ragged S the kernels are further from the plain backward that
+        lost its last key tile (dq) or q tile (dk/dv) than the bound allows."""
+        q, k, v = torch_inputs(torch.bfloat16, *rand_qkv(180, 1, 1301, 2), device=card)
+        g = torch.from_numpy(rand_grad(181, (1, 1301, 2, 64))).to(card, torch.bfloat16)
+        o, lse = flash_attention_bound(q, k, v)
+        delta = attention_delta(o, g)
+        grads = flash_attention_backward(q, k, v, o, lse, g)
+        cuts = chip_smoke.dropped_tile_errors(q, k, v, g, lse, delta, grads)
+        for name, err, a in zip("qkv", cuts, grads):
+            assert err > chip_smoke.grad_bound(a), f"d{name}: {err}"
+
     @pytest.mark.parametrize("stable", [False, True])
     def test_bounds_catch_a_dropped_last_tile(self, card, stable):
         """At a ragged S the kernel is further from the plain version that
@@ -598,6 +760,28 @@ class TestStageTool:
 
     def test_refuses_to_run_without_a_card(self):
         from da3slam_tpu_torch.tools import flash_fwd_stages as tool
+
+        if torch.cuda.is_available():
+            pytest.skip("a CUDA device is present")
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            tool.main([])
+
+    def test_backward_variants_cut_lines_that_exist_once(self):
+        """tools/flash_bwd_stages.py: every variant's replacements apply to the
+        backward's source as it stands, and change it."""
+        from da3slam_tpu_torch.ops import flash_attention as fa
+        from da3slam_tpu_torch.tools import flash_bwd_stages as tool
+
+        text = (fa._CSRC / tool.SOURCE).read_text()
+        assert tool.cut_source("as_built") == text
+        for name in tool.VARIANTS:
+            if name != "as_built":
+                assert tool.cut_source(name) != text, name
+        assert f"constexpr int kPairTile = {BWD_TILE};" in text
+        assert f"static constexpr int kN = kDkv ? {BWD_TILE_DKV} : {BWD_TILE};" in text
+
+    def test_backward_tool_refuses_to_run_without_a_card(self):
+        from da3slam_tpu_torch.tools import flash_bwd_stages as tool
 
         if torch.cuda.is_available():
             pytest.skip("a CUDA device is present")

@@ -353,6 +353,61 @@ class TestSolver:
         np.testing.assert_allclose(tsolver.trajectory()[0], host.trajectory()[0], atol=1e-6)
         assert all(isinstance(r["extrinsics_global"], np.ndarray) for r in tsolver.results)
 
+    def test_device_resident_prints_and_exports_what_the_host_path_does(self, tmp_path, capsys):
+        """The device-resident run defers every stat and pose to one packed
+        fetch; what it prints and what ``trajectory()`` returns are the host
+        path's, bit for bit (the same operations on the same tensors; the
+        pack's f64 holds every f32 exactly)."""
+        out = {}
+        for resident in (False, True):
+            cfg = {k: dict(v) for k, v in self.CONFIG.items()}
+            cfg["Model"]["device_resident"] = resident
+            solver = SLAMSolver(make_synthetic_image_dir(tmp_path / str(resident), 14), cfg,
+                                model=SyntheticDA3(make_trajectory(14), chunk_scales=self.SCALES),
+                                device="cpu")
+            solver.run()
+            stats = [ln for ln in capsys.readouterr().out.splitlines() if "depth_scale=" in ln]
+            out[resident] = (stats, *solver.trajectory())
+        assert len(out[True][0]) == 3 and out[True][0] == out[False][0]
+        for a, b in zip(out[True][1:], out[False][1:]):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+
+    def test_materialize_is_one_packed_fetch(self, tmp_path, capsys, monkeypatch):
+        """Stats (f32 and f64 scalars), f64 poses and f32 intrinsics of three
+        chunks leave the device in ONE ``.cpu()`` call and come back bit for
+        bit in their own dtypes; arrays that were already fetched stay."""
+        solver = SLAMSolver(str(tmp_path), self.CONFIG, model=SyntheticDA3(make_trajectory(3)),
+                            device="cpu")
+        rng = np.random.default_rng(0)
+        ext = [torch.from_numpy(rng.normal(size=(5, 3, 4))) for _ in range(3)]  # f64
+        intr = [torch.from_numpy(rng.normal(size=(5, 3, 3)).astype(np.float32)) for _ in range(3)]
+        host = rng.normal(size=(5, 3, 3)).astype(np.float32)
+        solver.results = [{"extrinsics_global": e, "intrinsics": k} for e, k in zip(ext, intr)]
+        solver.results.append({"extrinsics_global": ext[0].numpy(), "intrinsics": host})
+        solver._deferred_stats = [
+            ("chunk 1", torch.tensor(1.23456789), torch.tensor(0.5, dtype=torch.float64),
+             torch.tensor(1e-3)),
+            ("tail chunk (2 new frames)", torch.tensor(0.987654321), torch.tensor(1.0),
+             torch.tensor(2.5e-4)),
+        ]
+        calls = []
+        fetch = torch.Tensor.cpu
+        monkeypatch.setattr(torch.Tensor, "cpu", lambda t, *a, **k: (calls.append(1),
+                                                                    fetch(t, *a, **k))[1])
+        solver._materialize()
+        assert len(calls) == 1 and not solver._deferred_stats
+        assert capsys.readouterr().out.splitlines() == [
+            "  chunk 1: depth_scale=1.2346 fitness=0.5000 inlier_rmse=0.00100",
+            "  tail chunk (2 new frames): depth_scale=0.9877 fitness=1.0000 inlier_rmse=0.00025"]
+        for r, e, k in zip(solver.results, ext, intr):
+            assert r["extrinsics_global"].dtype == np.float64
+            assert r["intrinsics"].dtype == np.float32
+            assert np.array_equal(r["extrinsics_global"], e.numpy())
+            assert np.array_equal(r["intrinsics"], k.numpy())
+        assert solver.results[3]["intrinsics"] is host
+        solver._materialize()  # nothing left on the device: no fetch, no output
+        assert len(calls) == 1 and capsys.readouterr().out == ""
+
     def test_rejects_what_is_not_ported(self, tmp_path):
         model = SyntheticDA3(make_trajectory(3))
         with pytest.raises(NotImplementedError, match="viewer"):
