@@ -9,17 +9,19 @@ final line:
 2. build: nvcc build of every kernel (flash attention, the flash probes, the
    3x3 conv, the int8 probe), with ptxas's registers, shared memory and spills
    per kernel; a register spill or a serialized wgmma in the forward's or the
-   backward's source fails the phase
+   backward's source fails the phase, and so does an f32 backward kernel
+   without TF32 HGMMA instructions in ``cuobjdump -sass``
 3. kernel vs plain, bound and stable forwards: each kernel against its plain
    torch version, both on the card, at the SMALL tier's shapes, for the bound
    forward the LARGE tier's, and at lengths around the bf16 kernel's 64-row
    warpgroup and 128-key tile (CUDA-event times, median of a few runs); the
    bf16 cross-view call of either mode must run above the f32 pipe's peak rate
 4. backward vs plain: the dq and dk/dv kernels against the plain backward at
-   the training shapes (f32 and bf16), the SLAM shape and bf16 lengths around
-   the tensor-core kernels' tiles; the plain version with its last key or q
-   tile dropped must break each bound; the bf16 cross-view calls must run
-   above the f32 pipe's peak rate
+   the training shapes (f32 and bf16), the SLAM shape and lengths around
+   either dtype's tiles; the plain version with its last key or q tile
+   dropped must break each bound; the bf16 cross-view calls must run above
+   the f32 pipe's peak rate (the f32 kernels' tensor-core instructions are
+   read from the built library in phase 2)
 5. model f32 parity: the SMALL forward on a 2-frame 518² chunk, CUDA f32
    (kernel) against the same weights on the CPU (plain attention)
 6. train grad parity: one SMALL window's loss gradients, card (kernels)
@@ -122,11 +124,12 @@ STABLE_CASES = [(n, d, s, 1.0) for n, d, s in KERNEL_CASES + EDGE_CASES] + [
 # the backward at the training shapes (4 views at 504²: intra 4 x 1301,
 # cross 5204) and a ragged case in f32 (the CLI's training dtype) and in bf16
 # (make_train_step(dtype=torch.bfloat16)), the SLAM cross shape in bf16, and
-# bf16 lengths around the tensor-core kernels' tiles (64 own rows a warpgroup,
-# 128 a CTA, ring stages of 64 keys for dq and 32 q rows for dk/dv).  At S = 1
-# dq is 0 up to the order of f32 sums (dz = dO.v - dO.O with O = v), which no
-# relative bound can hold: tests/test_torch_flash_attention.py has that case
-# with an absolute floor.
+# lengths around the kernels' tiles: bf16 (64 own rows a warpgroup, 128 a
+# CTA, ring stages of 64 keys for dq and 32 q rows for dk/dv) and f32 (64 own
+# rows a CTA, 32 rows a stage for both, S padded to 64).  At S = 1 dq is 0 up
+# to the order of f32 sums (dz = dO.v - dO.O with O = v), which no relative
+# bound can hold: tests/test_torch_flash_attention.py has that case with an
+# absolute floor.
 BWD_CASES = [
     ("train_intra", torch.float32, (4, 1301, 6, 64)),
     ("train_cross", torch.float32, (1, 5204, 6, 64)),
@@ -135,7 +138,8 @@ BWD_CASES = [
     ("train_intra_bf16", torch.bfloat16, (4, 1301, 6, 64)),
     ("train_cross_bf16", torch.bfloat16, (1, 5204, 6, 64)),
     ("ragged_bf16", torch.bfloat16, (2, 300, 3, 64)),
-] + [(f"edge{S}_bf16", torch.bfloat16, (2, S, 3, 64)) for S in (63, 64, 65, 127, 128, 129)]
+] + [(f"edge{S}_bf16", torch.bfloat16, (2, S, 3, 64)) for S in (63, 64, 65, 127, 128, 129)] + [
+    (f"edge{S}", torch.float32, (2, S, 3, 64)) for S in (31, 32, 33, 63, 64, 65, 129)]
 # the bf16 backward cases that must run above the f32 pipe's peak rate
 BWD_TENSOR_CORE_CASES = ("slam_cross", "train_cross_bf16")
 # Bounds on max |kernel - plain|, forwards.  Both round p to V's dtype at the
@@ -160,11 +164,17 @@ LSE_TOL = 1e-3
 LSE_TOL_30X = 2e-4
 F32_REL_TOL_30X = 1e-4
 # Bounds on max |kernel - plain| of each gradient, relative to its max |g|.
-# f32: both take the same f32 products and differ in the order of sums over
-# up to S terms (~sqrt(S)·2^-24 of the terms: ~1e-6 of max|g| at S = 5204);
-# 1e-4 is ~100x that.  bf16: dz and p are rounded to bf16 at the same points,
-# but an f32 difference can tip a value at a rounding boundary, and the
-# outputs are rounded to bf16 (one ulp = 2^-8 relative): 2^-6, as for O.  A
+# f32: the kernels take every product as 3xTF32 (hi·hi + hi·lo + lo·hi of
+# TF32 halves, ~2^-21 relative a product against f32's 2^-24) and sum in
+# another order; their tensor-core sums truncate each addition, so they add 8
+# tiles at a time and promote each block into an f32 sum rounded to nearest.
+# Measured 1e-6 to 4e-6 of max|g| up to S = 5204 (6e-5 there before the
+# promotion: the truncation's bias grows with S); 1e-4 is 25x that.  One TF32
+# product in place of three is 7e-4 to 1.7e-3 (tools/flash_bwd_stages.py,
+# tests/test_torch_flash_attention.py::TestTf32BackwardModel).  bf16: dz and p
+# are rounded to bf16 at the same points, but an f32 difference can tip a value
+# at a rounding boundary, and the outputs are rounded to bf16 (one ulp = 2^-8
+# relative): 2^-6, as for O.  A
 # kernel that skipped the ragged last key tile (dq) or q tile (dk/dv) moves
 # the gradient by several percent of max|g|: the backward phase checks that
 # each bound catches it at each shape.
@@ -332,6 +342,21 @@ def attention_roofline(shape, dtype, flop_per_score: int, n_tensors: int, n_rows
                     n_tensors * B * S * H * D * elem + n_rows * B * H * S * 4, dtype)
 
 
+def backward_roofline(shape, dtype, flop_per_score: int, n_tensors: int) -> dict:
+    """Roofline of a backward kernel (6 dq, 8 dk/dv; lse and Δ in).  The f32
+    kernels take each product three times on the TF32 tensor cores (3xTF32),
+    so their bound is three times the operations at the TF32 peak; the f32
+    FMA pipe's bound stands beside it (``bound_ms_f32_fma``)."""
+    r = attention_roofline(shape, dtype, flop_per_score, n_tensors=n_tensors, n_rows=2)
+    if dtype != torch.float32:
+        return r
+    r.pop("bound_ms_tf32")
+    t_ops = 3 * r["flop"] / PEAK_TF32_FLOPS
+    t_bytes = r["bytes"] / PEAK_BYTES_PER_S
+    return {**r, "bound_ms_f32_fma": r["bound_ms"], "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
 def sdpa_ms(q, k, v, reps: int = 5, scale=None) -> float:
     """Time of one ``F.scaled_dot_product_attention`` call on ``[B, S, H, D]``
     inputs (viewed as ``[B, H, S, D]``): the library's forward."""
@@ -353,8 +378,10 @@ def dropped_tile_errors(q, k, v, do, lse, delta, grads) -> list[float]:
     """Max |Δ| of (dq, dk, dv) when the plain backward drops the last (ragged)
     key tile from dq and the last q tile from dk/dv: what a kernel with that
     fault would show.  ``grads`` are the whole plain gradients.  The tiles are
-    the kernels': 64 rows, but 32 q rows for the bf16 dk/dv."""
+    the kernels' ring stages: in bf16 64 keys for dq and 32 q rows for dk/dv,
+    in f32 32 rows for both."""
     from da3slam_tpu_torch.ops.flash_attention import (
+        BWD_F32_TILE,
         BWD_TILE,
         BWD_TILE_DKV,
         flash_attention_bwd_dkv_reference,
@@ -362,9 +389,11 @@ def dropped_tile_errors(q, k, v, do, lse, delta, grads) -> list[float]:
     )
 
     B, S, H, _ = q.shape
-    cut = (S - 1) // BWD_TILE * BWD_TILE
+    bf16 = q.dtype == torch.bfloat16
+    tile = BWD_TILE if bf16 else BWD_F32_TILE
+    cut = (S - 1) // tile * tile
     dq_cut = flash_attention_bwd_dq_reference(q, k[:, :cut], v[:, :cut], do, lse, delta)
-    tile = BWD_TILE_DKV if q.dtype == torch.bfloat16 else BWD_TILE
+    tile = BWD_TILE_DKV if bf16 else BWD_F32_TILE
     cut = (S - 1) // tile * tile
 
     def rows(x):
@@ -413,6 +442,15 @@ def counted(path_launches: dict, path: str):
     path_launches[path] = {name: fn.launches for name, fn in counters().items()}
 
 
+def gpu_state() -> str:
+    """The card's clocks, temperature and power draw now (nvidia-smi), to
+    stand beside a time taken just before."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,clocks.mem,temperature.gpu,"
+         "power.draw", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+
+
 def phase_env() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -424,6 +462,30 @@ def phase_env() -> str:
     return smi
 
 
+def tensor_core_instructions(library: Path) -> dict:
+    """``cuobjdump -sass`` of a built library: each kernel's HGMMA (``wgmma``)
+    instructions by kind and count, under its mangled name."""
+    import shutil
+
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(exe).exists():
+        fail("cuobjdump not found (PATH or /usr/local/cuda/bin): cannot read the kernels' SASS")
+    sass = subprocess.run([exe, "-sass", str(library)], capture_output=True, text=True,
+                          check=True).stdout
+    kernels: dict = {}
+    name = None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"HGMMA\.\S+", ln)
+        if m and name:
+            kinds = kernels.setdefault(name, {})
+            kinds[m.group(0)] = kinds.get(m.group(0), 0) + 1
+    return kernels
+
+
 def phase_build() -> None:
     from da3slam_tpu_torch.ops import flash_attention as fa
 
@@ -431,8 +493,15 @@ def phase_build() -> None:
     ptxas = {src: [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
                    if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
              for src, log in fa._Kernel.build_logs.items()}
+    hgmma = tensor_core_instructions(fa._Kernel.paths["flash_attn_bwd.cu"])
     emit("build", seconds=fa._Kernel.build_seconds,
-         libraries=[str(p.relative_to(ROOT)) for p in fa._Kernel.paths.values()], ptxas=ptxas)
+         libraries=[str(p.relative_to(ROOT)) for p in fa._Kernel.paths.values()], ptxas=ptxas,
+         backward_hgmma=hgmma)
+    # the f32 backward kernels run on the tensor cores: TF32 wgmma in their SASS
+    for kernel in ("flash_bwd_dq_tf32_kernel", "flash_bwd_dkv_tf32_kernel"):
+        kinds = next((v for k, v in hgmma.items() if kernel in k), {})
+        if not any(".TF32" in kind for kind in kinds):
+            fail(f"{kernel}: no TF32 HGMMA instruction in its SASS ({kinds})")
     # the tensor-core kernels' accumulators must stay in registers and their
     # wgmmas asynchronous (a log exists when this process built the library,
     # as it does in a fresh checkout)
@@ -535,7 +604,7 @@ def phase_backward() -> dict:
         flop = B * H * S * S * D
         library_ms = sdpa_backward_ms(q, k, v, g)
         row = {"case": name, "dtype": str(dtype).replace("torch.", ""), "shape": list(shape),
-               "library_ms": library_ms,
+               "gpu_state": gpu_state(), "library_ms": library_ms,
                "library": "autograd backward of F.scaled_dot_product_attention "
                           "(dq, dk and dv together)",
                "max_abs_err": errs, "tol": tols, "dropped_tile_err": cut_errs,
@@ -561,10 +630,10 @@ def phase_backward() -> dict:
         # dq reads q, k, v, dO, lse, Δ and writes dq; dk/dv writes two tensors
         rows["flash_attn_bwd_dq"].append({
             **row, "max_abs_err": errs["dq"], "ms": dq_ms, "plain_ms": dq_plain,
-            **attention_roofline(shape, dtype, 6, n_tensors=5, n_rows=2)})
+            **backward_roofline(shape, dtype, 6, n_tensors=5)})
         rows["flash_attn_bwd_dkv"].append({
             **row, "max_abs_err": max(errs["dk"], errs["dv"]), "ms": dkv_ms,
-            "plain_ms": dkv_plain, **attention_roofline(shape, dtype, 8, n_tensors=6, n_rows=2)})
+            "plain_ms": dkv_plain, **backward_roofline(shape, dtype, 8, n_tensors=6)})
         del q, k, v, g, o, lse, delta, dq, dk, dv, refs
         torch.cuda.empty_cache()
     return rows
@@ -703,7 +772,9 @@ def phase_train_grad_parity(dtype: torch.dtype = torch.float32) -> None:
 def _kernel_category(name: str) -> str:
     if any(s in name for s in ("flash_fwd", "key_norm_max", "flash_probe", "int8_flash")):
         return "attention_fwd"
-    if "flash_bwd" in name:
+    # the backward kernels and their pre-passes (q' folded, (lse, Δ) pairs
+    # padded, the f32 operands split into TF32 halves)
+    if any(s in name for s in ("flash_bwd", "fold_q", "pad_rows", "split_tf32")):
         return "attention_bwd"
     low = name.lower()
     if any(s in low for s in ("conv", "cudnn", "fprop", "dgrad", "wgrad")):

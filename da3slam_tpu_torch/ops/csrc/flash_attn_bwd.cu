@@ -18,9 +18,9 @@
 // bias lane and zero padding).
 //
 // Layout: q, k, v, dO, dq, dk, dv are [B, S, H, 64] contiguous (the model's
-// layout: no fold/transpose copies); lse and Delta are [B*H, S] f32.  T is
-// __nv_bfloat16 (the tensor-core kernels) or float (the FMA kernels), picked
-// by dtype alone.
+// layout); lse and Delta are [B*H, S] f32.  T is __nv_bfloat16 or float,
+// picked by dtype alone; both run on the tensor cores (round_to_T is the
+// identity in f32).
 //
 // What bounds it on an H100: work.  The two kernels each recompute s and
 // dO.v^T, so the backward is 14*S^2*D FLOP per (b, h) (dq: 6, dk/dv: 8)
@@ -83,18 +83,60 @@
 // builds this file in changed copies (one fragment set, 64-row dk/dv tiles,
 // no overlap, half the ring) and times them in turns.
 // No atomics in either design: every output row is owned by one warpgroup
-// thread quad (bf16) or thread pair (f32), so the result is deterministic.
+// thread quad, so the result is deterministic.
 //
-// The f32 kernels (flash_bwd_dq_kernel, flash_bwd_dkv_kernel) are the FMA-pipe
-// design both types had before bf16 moved to the tensor cores, exact in f32
-// (TF32 would keep ~10 bits of q' and k): one CTA per (b*h, 64-row tile),
-// looping over the other side's tiles of 64 staged in shared memory as f32.
-// A PAIR of adjacent threads owns one row, each thread half of the head dim
-// in interleaved 4-wide chunks (thread h of the pair holds chunks 2m + h, m =
-// 0..7), so a thread keeps three (dq: q', dO, dq) or four (dk/dv: k, v, dk,
-// dv) 32-wide rows in registers, and the pair's two shared-memory reads of a
-// row land in different banks.  The two half dot products meet by one
-// __shfl_xor each.  Training in f32 and the f32 parity runs use them.
+// The f32 kernels (flash_bwd_dq_tf32_kernel, flash_bwd_dkv_tf32_kernel: one
+// body, bwd_tf32_body) take every product as error-compensated TF32 on wgmma
+// (3xTF32, what CUTLASS's OpMultiplyAddFastF32 and so PyTorch's own f32
+// attention backward do on mma.sync).  Each f32 operand x is split into
+// hi = tf32_rna(x) and lo = tf32_rna(x - hi) (cvt.rna.tf32.f32), and a product
+// is lo.hi + hi.lo + hi.hi in f32 accumulators, the small terms first: ~21
+// bits where one TF32 product keeps ~11, whose error in s (2^-11 |q'||k|)
+// would move p by ~0.4%.  TF32 flags (torch.backends) do not govern it.  What
+// bounds it: 3 x 14*S^2*D FLOP at 495 TFLOP/s (train cross, (1, 5204, 6, 64):
+// dq 0.378, dk/dv 0.504 ms, against 0.931 and 1.242 on the f32 FMA pipes).
+//   - TF32 wgmma reads both shared-memory operands K-major only (no transpose
+//     bit below 16 bits), so the gradient products' B operands are laid out
+//     with the summed dimension contiguous: a pre-pass (split_tf32_kernel)
+//     writes, per input tensor, its split copy [bh][hi/lo][half][S_pad][32]
+//     (q' folded in, rows padded with zeros to S_pad = ceil(S/64)*64) and,
+//     where a gradient product needs it, the transposed split copy
+//     [bh][hi/lo][64][S_pad]: Kᵀ for dq, q'ᵀ and dOᵀ for dk/dv.  An f32 row
+//     of 64 is two 128-byte swizzle rows, so a tile is two [rows, 32] halves
+//     of the head dim; a k8 step is 32 bytes, four a swizzle row, and step 4
+//     starts on the second half (no leading byte offset is used).
+//   - The A fragments of the gradient products (p and dz, split in registers)
+//     come from the score accumulators with no shuffle.  The accumulator
+//     holds columns 2t, 2t+1 of each 8 (t = lane % 4), the TF32 A fragment
+//     takes inner indices t and t+4: so the transposed copies permute the
+//     summed index inside each group of 8 (position p holds row
+//     tf32_row_at(p)), which pairs each fragment value with its row.
+//   - A CTA owns 64 rows (one consumer warpgroup; 160 threads, so ptxas may
+//     grant 255 registers) and streams the other side 32 rows a stage.  The
+//     own side, both tensors split, is 64 KB; a stage is 48 KB for dq (K and V
+//     split, Kᵀ split) and 64 KB for dk/dv: 64 own rows and two stages fit in
+//     227 KB, 128 rows do not.  A stage's natural tiles are free once tile
+//     t's scores are, its transposed tiles only after tile t's gradient
+//     products (which run beside tile t+1's scores): two rings of two stages,
+//     with their own full/empty barriers, so that each load has a whole tile
+//     step to land.
+//   - The rest is the bf16 design: tile t's scores and tile t-1's gradient
+//     products start together and the exp2 of tile t runs while the latter
+//     finish; the fragments are split while no wgmma is in flight.  (Starting
+//     tile t+1's scores before that split, to keep the tensor cores' queue
+//     full, bought nothing and took dk/dv to 255 registers.)  dq masks
+//     the last tile's padded keys to -inf, dk/dv's padded (lse, Delta) pairs
+//     carry (+inf, 0); own rows past S are not stored.
+//   - The tensor cores' f32 sum truncates each addition: over the S/8 x 3
+//     additions of a gradient the bias reached 6e-5 of max|g| at S = 5204.
+//     So the gradient products restart their accumulators every
+//     kPromoteTiles tiles and each block is added, rounded to nearest, into
+//     f32 sums in shared memory (3e-6; 2-3% of the time).
+// Measured (PERF.md, H100 at 700 W, train cross): dq 0.921 ms, dk/dv 1.198,
+// together ahead of the library's backward (3.38), from 2.581 + 2.639 on the
+// FMA pipes (a thread pair a row; that design is gone).
+// da3slam_tpu_torch/tools/flash_bwd_stages.py times changed copies (one TF32
+// product, half the rings, no overlap, no promotion).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // Bound to PyTorch with ctypes (da3slam_tpu_torch/ops/flash_attention.py).
@@ -105,197 +147,6 @@
 namespace {
 
 using namespace flash;
-
-constexpr int kTile = 64;              // rows per CTA, and rows per staged tile
-constexpr int kThreads = 2 * kTile;    // a pair of threads per row
-constexpr int kHalf = kHeadDim / 2;    // dims per thread
-constexpr int kChunks = kHalf / 4;     // 4-wide chunks per thread
-
-// chunk m of this thread's half: dims [8m + 4*half, 8m + 4*half + 4)
-__device__ __forceinline__ int chunk_col(int m, int half) { return 8 * m + 4 * half; }
-
-// this thread's half of one global row of T into f32 registers, each element
-// as round_to<T>(x * scale)
-template <typename T>
-__device__ __forceinline__ void load_half(const T* row, int half, float scale, float* out) {
-#pragma unroll
-  for (int m = 0; m < kChunks; ++m) {
-    load4(row + chunk_col(m, half), out + 4 * m);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) out[4 * m + i] = round_to<T>(out[4 * m + i] * scale);
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void store_half(T* row, int half, float scale, const float* in) {
-#pragma unroll
-  for (int m = 0; m < kChunks; ++m) {
-    float x[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = in[4 * m + i] * scale;
-    store4(row + chunk_col(m, half), x);
-  }
-}
-
-// the pair's full dot products of (a . tile_a[j]) and (b . tile_b[j])
-__device__ __forceinline__ void pair_dots(const float* a, const float* b, const float* tile_a_row,
-                                          const float* tile_b_row, int half, float& da,
-                                          float& db) {
-  const float4* ra = reinterpret_cast<const float4*>(tile_a_row);
-  const float4* rb = reinterpret_cast<const float4*>(tile_b_row);
-  float a0 = 0.f, a1 = 0.f, b0 = 0.f, b1 = 0.f;
-#pragma unroll
-  for (int m = 0; m < kChunks; ++m) {
-    const float4 x = ra[2 * m + half];
-    const float4 y = rb[2 * m + half];
-    a0 = fmaf(a[4 * m + 0], x.x, a0);
-    a1 = fmaf(a[4 * m + 1], x.y, a1);
-    a0 = fmaf(a[4 * m + 2], x.z, a0);
-    a1 = fmaf(a[4 * m + 3], x.w, a1);
-    b0 = fmaf(b[4 * m + 0], y.x, b0);
-    b1 = fmaf(b[4 * m + 1], y.y, b1);
-    b0 = fmaf(b[4 * m + 2], y.z, b0);
-    b1 = fmaf(b[4 * m + 3], y.w, b1);
-  }
-  da = a0 + a1;
-  db = b0 + b1;
-  // x + y == y + x in IEEE: both threads of the pair get the same bits
-  da += __shfl_xor_sync(0xffffffffu, da, 1);
-  db += __shfl_xor_sync(0xffffffffu, db, 1);
-}
-
-// acc += w * tile_row (this thread's half)
-__device__ __forceinline__ void axpy_half(float* acc, float w, const float* tile_row, int half) {
-  const float4* r = reinterpret_cast<const float4*>(tile_row);
-#pragma unroll
-  for (int m = 0; m < kChunks; ++m) {
-    const float4 x = r[2 * m + half];
-    acc[4 * m + 0] = fmaf(w, x.x, acc[4 * m + 0]);
-    acc[4 * m + 1] = fmaf(w, x.y, acc[4 * m + 1]);
-    acc[4 * m + 2] = fmaf(w, x.z, acc[4 * m + 2]);
-    acc[4 * m + 3] = fmaf(w, x.w, acc[4 * m + 3]);
-  }
-}
-
-// dq: one CTA per (b*h, 64-row q tile), looping over key tiles
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq, int S, int H,
-                    float scale_qk, float scale_dq) {
-  __shared__ __align__(16) float k_tile[kTile][kHeadDim];
-  __shared__ __align__(16) float v_tile[kTile][kHeadDim];
-
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int half = threadIdx.x & 1;
-  const int row = blockIdx.x * kTile + (threadIdx.x >> 1);
-  const bool active = row < S;
-  const size_t row_stride = static_cast<size_t>(H) * kHeadDim;
-  const size_t head_base = static_cast<size_t>(b) * S * row_stride + static_cast<size_t>(h) * kHeadDim;
-
-  // an inactive pair (row >= S) runs on zeros, finite throughout, and stores
-  // nothing: every thread takes part in the shuffles and barriers
-  float qr[kHalf], dor[kHalf], acc[kHalf];
-  float lse_i = 0.f, d_i = 0.f;
-  if (active) {
-    const size_t off = head_base + static_cast<size_t>(row) * row_stride;
-    load_half(q + off, half, scale_qk, qr);
-    load_half(dout + off, half, 1.f, dor);
-    lse_i = lse[static_cast<size_t>(bh) * S + row];
-    d_i = delta[static_cast<size_t>(bh) * S + row];
-  } else {
-#pragma unroll
-    for (int d = 0; d < kHalf; ++d) qr[d] = dor[d] = 0.f;
-  }
-#pragma unroll
-  for (int d = 0; d < kHalf; ++d) acc[d] = 0.f;
-
-  for (int k0 = 0; k0 < S; k0 += kTile) {
-    const int nk = min(kTile, S - k0);
-    __syncthreads();  // the previous tile has been consumed
-    stage_tile<T, kTile>(k_tile, k + head_base, row_stride, k0, nk, 1.f, threadIdx.x, kThreads);
-    stage_tile<T, kTile>(v_tile, v + head_base, row_stride, k0, nk, 1.f, threadIdx.x, kThreads);
-    __syncthreads();
-    for (int j = 0; j < nk; ++j) {  // keys past S are never visited
-      float s, dov;
-      pair_dots(qr, dor, k_tile[j], v_tile[j], half, s, dov);
-      const float p = exp2f(s - lse_i);
-      const float dz = p * (dov - d_i);
-      axpy_half(acc, round_to<T>(dz), k_tile[j], half);
-    }
-  }
-  if (active) {
-    store_half(dq + head_base + static_cast<size_t>(row) * row_stride, half, scale_dq, acc);
-  }
-}
-
-// dk/dv: one CTA per (b*h, 64-key tile), looping over q tiles
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                     int S, int H, float scale_qk, float scale_dk) {
-  __shared__ __align__(16) float q_tile[kTile][kHeadDim];
-  __shared__ __align__(16) float do_tile[kTile][kHeadDim];
-  __shared__ float lse_tile[kTile];
-  __shared__ float d_tile[kTile];
-
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int half = threadIdx.x & 1;
-  const int col = blockIdx.x * kTile + (threadIdx.x >> 1);
-  const bool active = col < S;
-  const size_t row_stride = static_cast<size_t>(H) * kHeadDim;
-  const size_t head_base = static_cast<size_t>(b) * S * row_stride + static_cast<size_t>(h) * kHeadDim;
-  const float* lse_bh = lse + static_cast<size_t>(bh) * S;
-  const float* delta_bh = delta + static_cast<size_t>(bh) * S;
-
-  // an inactive pair (key >= S) runs on zeros and stores nothing; its values
-  // may overflow (p = exp2(-lse)) but never leave its registers
-  float kr[kHalf], vr[kHalf], dk_acc[kHalf], dv_acc[kHalf];
-  if (active) {
-    const size_t off = head_base + static_cast<size_t>(col) * row_stride;
-    load_half(k + off, half, 1.f, kr);
-    load_half(v + off, half, 1.f, vr);
-  } else {
-#pragma unroll
-    for (int d = 0; d < kHalf; ++d) kr[d] = vr[d] = 0.f;
-  }
-#pragma unroll
-  for (int d = 0; d < kHalf; ++d) dk_acc[d] = dv_acc[d] = 0.f;
-
-  for (int q0 = 0; q0 < S; q0 += kTile) {
-    const int nq = min(kTile, S - q0);
-    __syncthreads();  // the previous tile has been consumed
-    // q' rounded to T as the forward folds it
-    stage_tile<T, kTile>(q_tile, q + head_base, row_stride, q0, nq, scale_qk, threadIdx.x, kThreads);
-    stage_tile<T, kTile>(do_tile, dout + head_base, row_stride, q0, nq, 1.f, threadIdx.x, kThreads);
-    if (threadIdx.x < kTile) {
-      const bool in = threadIdx.x < nq;
-      lse_tile[threadIdx.x] = in ? lse_bh[q0 + threadIdx.x] : 0.f;
-      d_tile[threadIdx.x] = in ? delta_bh[q0 + threadIdx.x] : 0.f;
-    }
-    __syncthreads();
-    for (int i = 0; i < nq; ++i) {  // rows past S are never visited
-      float s, dov;
-      pair_dots(kr, vr, q_tile[i], do_tile[i], half, s, dov);
-      const float p = exp2f(s - lse_tile[i]);
-      const float dz = p * (dov - d_tile[i]);
-      axpy_half(dv_acc, round_to<T>(p), do_tile[i], half);
-      axpy_half(dk_acc, round_to<T>(dz), q_tile[i], half);
-    }
-  }
-  if (active) {
-    const size_t off = head_base + static_cast<size_t>(col) * row_stride;
-    store_half(dk + off, half, scale_dk, dk_acc);
-    store_half(dv + off, half, 1.f, dv_acc);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16: wgmma, TMA ring
@@ -736,61 +587,610 @@ cudaError_t launch_dkv_wgmma(const void* k, const void* v, const void* dout, con
   return cudaGetLastError();
 }
 
-}  // namespace
+// ---------------------------------------------------------------------------
+// f32: 3xTF32 on wgmma, TMA rings of split and transposed copies
+// ---------------------------------------------------------------------------
 
-// dtype: 0 = float32 (the FMA kernels), 1 = bfloat16 (the tensor-core kernels,
-// which need `qs`, a [B, S, H, 64] bf16 workspace for the folded q'; unused in
-// f32).  scale_qk = log2(e)/sqrt(D) folds q into q'; scale_dq = 1/sqrt(D).
-// Returns a cudaError_t (0 on success); the caller raises on anything else.
-extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                                 const void* lse, const void* delta, void* dq, void* qs, int B,
-                                 int S, int H, int D, int dtype, float scale_qk, float scale_dq,
-                                 void* stream) {
-  if (D != kHeadDim || B <= 0 || S <= 0 || H <= 0 || B * H > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    if (qs == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    cudaError_t err = launch_fold_q(q, qs, B, S, H, scale_qk, st);
-    if (err == cudaSuccess) {
-      err = launch_dq_wgmma(k, v, dout, lse, delta, dq, qs, B, S, H, scale_dq, st);
+constexpr int kF32Rows = 64;                     // own rows a CTA: one consumer warpgroup
+constexpr int kF32N = 32;                        // rows of the other side a ring stage
+constexpr int kF32Threads = kWgThreads + 32;     // + the producer warp
+constexpr int kTf32Terms = 3;                    // lo·hi, hi·lo, hi·hi (the last kTf32Terms of them)
+constexpr int kPromoteTiles = 8;                 // gradient tiles summed on the tensor cores at a time
+constexpr int kF32OwnBytes = 4 * kF32Rows * kRowBytes;  // [hi/lo][half][64 rows][32 f32]: 32 KB
+constexpr int kF32NatBytes = 4 * kF32N * kRowBytes;     // [hi/lo][half][32 rows][32 f32]: 16 KB
+constexpr int kF32TrBytes = 2 * kHeadDim * kRowBytes;   // [hi/lo][64 dims][32 rows]: 16 KB
+constexpr int kSplitRows = 32;                   // rows a CTA of the pre-pass
+constexpr int kSplitThreads = 256;
+static_assert(kF32Rows == kPairTile, "S is padded to whole own tiles, the pairs' padding");
+
+// What differs between the two kernels: dk/dv streams two transposed tiles a
+// stage (q'ᵀ and dOᵀ) and the (lse, Δ) pairs, dq one (Kᵀ).
+template <bool kDkv>
+struct F32Tile {
+  static constexpr int kStages = 2;  // of each ring
+  static constexpr int kTr = kDkv ? 2 : 1;
+  static constexpr int kNatStage = 2 * kF32NatBytes;
+  static constexpr int kTrStage = kTr * kF32TrBytes;
+  static constexpr int kPairBytes = kDkv ? kF32N * 8 : 0;
+  static constexpr int kOutputs = kDkv ? 2 : 1;
+  static constexpr int kSumBytes = kOutputs * 32 * kWgThreads * 4;  // the promoted sums
+  // own tiles, the natural ring, the transposed ring, the pairs, the
+  // promoted sums, four barriers a stage and the own tiles' one; 1024 more
+  // to align the tiles
+  static constexpr int kSmemBytes = kGroupBytes + 2 * kF32OwnBytes +
+                                    kStages * (kNatStage + kTrStage + kPairBytes) + kSumBytes +
+                                    (4 * kStages + 1) * 8;
+  static_assert(kSmemBytes <= 232448, "shared memory of one CTA");
+};
+
+// Position p of a group of 8 in the transposed copies holds row
+// 8*(p/8) + tf32_row_at(p % 8): the accumulator element that the A fragment's
+// inner index p % 8 takes (split_fragments) is that row's score.
+__device__ __forceinline__ int tf32_row_at(int p) { return 2 * (p & 3) + (p >> 2); }
+
+// x [B, S, H, 64] f32 times `scale`, split into TF32 hi and lo (split_tf32):
+//   nat[bh][hi/lo][half][s][32]    s < S_pad, rows past S are 0: the own and
+//                                  streamed tiles of the score products
+//   tr[bh][hi/lo][d][s']           the same transposed, s' permuted inside each
+//                                  group of 8 (tf32_row_at): the B operands of
+//                                  the gradient products.  nullptr: not written.
+__global__ void __launch_bounds__(kSplitThreads)
+split_tf32_kernel(const float* __restrict__ x, float* __restrict__ nat, float* __restrict__ tr,
+                  int S, int H, int S_pad, float scale) {
+  __shared__ float tile[2][kHeadDim][kSplitRows + 1];
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int s0 = blockIdx.x * kSplitRows;
+  const size_t plane = static_cast<size_t>(S_pad) * kHeadDim;  // one of hi and lo
+  float* nat_bh = nat + static_cast<size_t>(bh) * 2 * plane;
+  for (int c = threadIdx.x; c < kSplitRows * kHeadDim / 4; c += kSplitThreads) {
+    const int r = c / (kHeadDim / 4);
+    const int col = 4 * (c % (kHeadDim / 4));
+    const int s = s0 + r;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (s < S) {
+      v = *reinterpret_cast<const float4*>(
+          x + ((static_cast<size_t>(b) * S + s) * H + h) * kHeadDim + col);
     }
-    return static_cast<int>(err);
+    const float in[4] = {v.x * scale, v.y * scale, v.z * scale, v.w * scale};
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_tf32(in[i], hi[i], lo[i]);
+    float* dst = nat_bh + (static_cast<size_t>(col / 32) * S_pad + s) * 32 + col % 32;
+    *reinterpret_cast<uint4*>(dst) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    *reinterpret_cast<uint4*>(dst + plane) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    if (tr != nullptr) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        tile[0][col + i][r] = __uint_as_float(hi[i]);
+        tile[1][col + i][r] = __uint_as_float(lo[i]);
+      }
+    }
   }
-  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((S + kTile - 1) / kTile, B * H);
-  flash_bwd_dq_kernel<float><<<grid, kThreads, 0, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<float*>(dq), S, H, scale_qk, scale_dq);
-  return static_cast<int>(cudaGetLastError());
+  if (tr == nullptr) return;  // the same for every thread of the block
+  __syncthreads();
+  float* tr_bh = tr + static_cast<size_t>(bh) * 2 * plane;
+  for (int w = threadIdx.x; w < 2 * kHeadDim * kSplitRows / 4; w += kSplitThreads) {
+    const int hl = w / (kHeadDim * kSplitRows / 4);
+    const int d = (w / (kSplitRows / 4)) % kHeadDim;
+    const int p0 = 4 * (w % (kSplitRows / 4));
+    float out[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int p = p0 + i;
+      out[i] = tile[hl][d][(p & ~7) + tf32_row_at(p & 7)];
+    }
+    *reinterpret_cast<float4*>(tr_bh + (static_cast<size_t>(hl) * kHeadDim + d) * S_pad + s0 + p0) =
+        make_float4(out[0], out[1], out[2], out[3]);
+  }
 }
 
-// scale_dk = ln(2): dk = dz^T . q_orig / sqrt(D) = ln(2) * dz^T . q'.  In bf16
-// `pairs` is one more workspace: [B*H, ceil(S/64)*64, 2] f32.
-extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-                                  const void* lse, const void* delta, void* dk, void* dv,
-                                  void* qs, void* pairs, int B, int S, int H, int D, int dtype,
-                                  float scale_qk, float scale_dk, void* stream) {
-  if (D != kHeadDim || B <= 0 || S <= 0 || H <= 0 || B * H > 65535) {
+// The slice of k-step i (8 inner f32) of split tile `tile` of `rows` rows:
+// hi (lo = 0) or lo, half i / 4 of the head dim
+__device__ __forceinline__ uint64_t nat_desc(uint32_t tile, int rows, int lo, int i) {
+  return tile_desc(tile + (2 * lo + (i >> 2)) * rows * kRowBytes + (i & 3) * 32);
+}
+// k-step j (8 streamed rows) of a transposed tile [hi/lo][64 dims][32 rows]
+__device__ __forceinline__ uint64_t tr_desc(uint32_t tile, int lo, int j) {
+  return tile_desc(tile + lo * kHeadDim * kRowBytes + j * 32);
+}
+
+// s = own0·other0ᵀ and dp = own1·other1ᵀ in 3xTF32: the warpgroup's 64 own
+// rows against the stage's kF32N rows (at `nat`: other0's split tile, then
+// other1's).  The small terms first, hi·hi last, as CUTLASS's FastF32 does.
+__device__ __forceinline__ void start_tf32_scores(float (&s)[16], float (&dp)[16], uint32_t own0,
+                                                  uint32_t own1, uint32_t nat) {
+#pragma unroll
+  for (int term = 3 - kTf32Terms; term < 3; ++term) {
+#pragma unroll
+    for (int i = 0; i < kHeadDim / 8; ++i) {
+      wgmma_m64n32k8_tf32_ss(s, nat_desc(own0, kF32Rows, term == 0, i),
+                             nat_desc(nat, kF32N, term == 1, i), term != 3 - kTf32Terms || i != 0);
+    }
+  }
+#pragma unroll
+  for (int term = 3 - kTf32Terms; term < 3; ++term) {
+#pragma unroll
+    for (int i = 0; i < kHeadDim / 8; ++i) {
+      wgmma_m64n32k8_tf32_ss(dp, nat_desc(own1, kF32Rows, term == 0, i),
+                             nat_desc(nat + kF32NatBytes, kF32N, term == 1, i),
+                             term != 3 - kTf32Terms || i != 0);
+    }
+  }
+  wgmma_commit();
+}
+
+// acc0 += dz·tr0 and, for dk/dv, acc1 += p·tr1 in 3xTF32: the split
+// fragments against the stage's transposed tiles (at `tr`).  fresh: the
+// products start a new block of kPromoteTiles tiles (acc = the products).
+template <bool kDkv>
+__device__ __forceinline__ void start_tf32_gradients(float (&acc0)[32], float (&acc1)[32],
+                                                     const uint32_t (&dz_hi)[16],
+                                                     const uint32_t (&dz_lo)[16],
+                                                     const uint32_t (&p_hi)[16],
+                                                     const uint32_t (&p_lo)[16], uint32_t tr,
+                                                     bool fresh) {
+#pragma unroll
+  for (int term = 3 - kTf32Terms; term < 3; ++term) {
+#pragma unroll
+    for (int j = 0; j < kF32N / 8; ++j) {
+      const int accumulate = !fresh || term != 3 - kTf32Terms || j != 0;
+      wgmma_m64n64k8_tf32_rs(acc0, (term == 0 ? dz_lo : dz_hi) + 4 * j, tr_desc(tr, term == 1, j),
+                             accumulate);
+      if constexpr (kDkv) {
+        wgmma_m64n64k8_tf32_rs(acc1, (term == 0 ? p_lo : p_hi) + 4 * j,
+                               tr_desc(tr + kF32TrBytes, term == 1, j), accumulate);
+      }
+    }
+  }
+  wgmma_commit();
+}
+
+// One streamed tile's p and dz from a thread's 2 x 16 score values, in the
+// accumulator's order (x[4j + 2r + {0, 1}]: row t/4 + 8r, columns 8j + c2 +
+// {0, 1}); lse and Δ as in gradient_terms.  s and dp are only read.
+template <bool kDkv>
+__device__ __forceinline__ void tf32_terms(const float (&s)[16], const float (&dp)[16],
+                                           float (&p)[16], float (&dz)[16],
+                                           const float (&lse_r)[2], const float (&delta_r)[2],
+                                           const float4* pairs, int n_valid, int c2) {
+  const bool ragged = !kDkv && n_valid < kF32N;
+#pragma unroll
+  for (int j = 0; j < kF32N / 8; ++j) {
+    float lse_c[2] = {0.f, 0.f}, delta_c[2] = {0.f, 0.f};
+    if constexpr (kDkv) {
+      const float4 x = pairs[(8 * j + c2) >> 1];  // columns 8j + c2 and + 1
+      lse_c[0] = x.x;
+      delta_c[0] = x.y;
+      lse_c[1] = x.z;
+      delta_c[1] = x.w;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int idx = 4 * j + 2 * r + e;
+        const float sc = ragged && 8 * j + c2 + e >= n_valid ? -INFINITY : s[idx];
+        const float pe = ex2(sc - (kDkv ? lse_c[e] : lse_r[r]));
+        dz[idx] = pe * (dp[idx] - (kDkv ? delta_c[e] : delta_r[r]));
+        if constexpr (kDkv) p[idx] = pe;
+      }
+    }
+  }
+}
+
+// Accumulator-order values of one tile as the split A fragments of its
+// gradient products: slot e of k-step j takes element kFragFromAcc[e] of the
+// same 8 columns.  The rows agree (slots 0, 2: row t/4; 1, 3: + 8), but the
+// fragment's inner index t%4 (+4) gets column 2(t%4) (+1): tf32_row_at, which
+// the pre-pass's transposed copies follow, pairs them up.
+__device__ __forceinline__ void split_fragments(const float (&x)[16], uint32_t (&hi)[16],
+                                                uint32_t (&lo)[16]) {
+  constexpr int kFragFromAcc[4] = {0, 2, 1, 3};
+#pragma unroll
+  for (int j = 0; j < kF32N / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split_tf32(x[4 * j + kFragFromAcc[e]], hi[4 * j + e], lo[4 * j + e]);
+  }
+}
+
+// sum[i] += acc[i], this thread's 32 promoted sums (sum[i * kWgThreads])
+__device__ __forceinline__ void promote(float* sum, const float (&acc)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sum[i * kWgThreads] += acc[i];
+}
+
+// rows row_lo and + 8 of the warpgroup's 64 x 64 output, sum + acc, scaled,
+// as f32
+__device__ __forceinline__ void store_rows_f32(float* out, const float (&acc)[32],
+                                               const float* sum, float scale, size_t head_base,
+                                               size_t row_stride, int row0, int S, int c2) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= S) continue;
+    float* orow = out + head_base + static_cast<size_t>(row) * row_stride + c2;
+#pragma unroll
+    for (int j = 0; j < kHeadDim / 8; ++j) {
+      const int i = 4 * j + 2 * r;
+      *reinterpret_cast<float2*>(orow + 8 * j) =
+          make_float2((sum[i * kWgThreads] + acc[i]) * scale,
+                      (sum[(i + 1) * kWgThreads] + acc[i + 1]) * scale);
+    }
+  }
+}
+
+// dq (kDkv false): own = (q', dO), other = (K, V), tr0 = Kᵀ, out0 = dq.
+// dk/dv (kDkv true): own = (K, V), other = (q', dO) with their (lse, Δ)
+// pairs, tr0 = q'ᵀ, tr1 = dOᵀ, out0 = dk, out1 = dv.  Every map is over a
+// split copy the pre-pass wrote (rows padded to S_pad with zeros).
+template <bool kDkv>
+__device__ __forceinline__ void bwd_tf32_body(
+    const CUtensorMap* own0_map, const CUtensorMap* own1_map, const CUtensorMap* other0_map,
+    const CUtensorMap* other1_map, const CUtensorMap* tr0_map, const CUtensorMap* tr1_map,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const float2* __restrict__ pairs, float* __restrict__ out0, float* __restrict__ out1, int S,
+    int H, float scale0) {
+  using T = F32Tile<kDkv>;
+  constexpr int kStages = T::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((kGroupBytes - (smem_addr(smem_raw) & (kGroupBytes - 1))) &
+                              (kGroupBytes - 1));
+  const uint32_t own = smem_addr(smem);
+  const uint32_t nat_ring = own + 2 * kF32OwnBytes;
+  const uint32_t tr_ring = nat_ring + kStages * T::kNatStage;
+  const uint8_t* pair_ring = smem + 2 * kF32OwnBytes + kStages * (T::kNatStage + T::kTrStage);
+  // The gradients' sums, f32 in shared memory, [output][i][thread]: the
+  // tensor cores' f32 sum truncates each addition, an error that grows with
+  // the number of additions (~S/8 of them a gradient, 6e-5 of max|g| at S =
+  // 5204), so they add kPromoteTiles tiles at a time into the accumulators,
+  // and each block is then added here, rounded to nearest.
+  float* sums = reinterpret_cast<float*>(
+      const_cast<uint8_t*>(pair_ring) + kStages * T::kPairBytes);
+  // per stage: the natural tiles' full and empty barriers, the transposed
+  // tiles' full and empty barriers; then the own tiles' barrier
+  const uint32_t bars = smem_addr(pair_ring + kStages * T::kPairBytes + T::kSumBytes);
+  auto full_nat = [&](int st) { return bars + st * 32; };
+  auto empty_nat = [&](int st) { return bars + st * 32 + 8; };
+  auto full_tr = [&](int st) { return bars + st * 32 + 16; };
+  auto empty_tr = [&](int st) { return bars + st * 32 + 24; };
+  const uint32_t own_bar = bars + kStages * 32;
+
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int n_tiles = (S + kF32N - 1) / kF32N;
+  const int own_row0 = blockIdx.x * kF32Rows;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full_nat(st), 1);   // the producer's arrive.expect_tx
+      mbar_init(empty_nat(st), 4);  // one arrival a consumer warp
+      mbar_init(full_tr(st), 1);
+      mbar_init(empty_tr(st), 4);
+    }
+    mbar_init(own_bar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kWgThreads) {
+    // ---- producer: one thread loads the own tiles and keeps both rings full.
+    // A stage's natural tiles are done with once tile t's scores are, its
+    // transposed ones only after tile t's gradient products, which run beside
+    // tile t+1's scores: two rings, so that neither waits for the other.
+    if (threadIdx.x != kWgThreads) return;
+    mbar_arrive_expect_tx(own_bar, 2 * kF32OwnBytes);
+    tma_load_4d(own, own0_map, own_bar, 0, own_row0, 0, bh);
+    tma_load_4d(own + kF32OwnBytes, own1_map, own_bar, 0, own_row0, 0, bh);
+    const size_t pair_row = static_cast<size_t>(bh) * ((S + kPairTile - 1) / kPairTile) * kPairTile;
+    for (int t = 0; t < n_tiles; ++t) {
+      const int st = t % kStages;
+      const uint32_t freed = ((t / kStages) - 1) & 1;  // the release of tile t - kStages
+      if (t >= kStages) mbar_wait(empty_nat(st), freed);
+      const uint32_t nat = nat_ring + st * T::kNatStage;
+      mbar_arrive_expect_tx(full_nat(st), T::kNatStage + T::kPairBytes);
+      tma_load_4d(nat, other0_map, full_nat(st), 0, t * kF32N, 0, bh);
+      tma_load_4d(nat + kF32NatBytes, other1_map, full_nat(st), 0, t * kF32N, 0, bh);
+      if constexpr (kDkv) {
+        bulk_load_1d(smem_addr(pair_ring + st * T::kPairBytes), pairs + pair_row + t * kF32N,
+                     T::kPairBytes, full_nat(st));
+      }
+      if (t >= kStages) mbar_wait(empty_tr(st), freed);
+      const uint32_t tr = tr_ring + st * T::kTrStage;
+      mbar_arrive_expect_tx(full_tr(st), T::kTrStage);
+      tma_load_4d(tr, tr0_map, full_tr(st), t * kF32N, 0, 0, bh);
+      if constexpr (kDkv) tma_load_4d(tr + kF32TrBytes, tr1_map, full_tr(st), t * kF32N, 0, 0, bh);
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroup: 64 own rows ----
+  const int tw = threadIdx.x;
+  const int lane = tw & 31;
+  const int c2 = (lane & 3) * 2;
+  const int row_lo = own_row0 + 16 * (tw >> 5) + (lane >> 2);  // and + 8
+
+  float lse_r[2] = {0.f, 0.f}, delta_r[2] = {0.f, 0.f};
+  if constexpr (!kDkv) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (row_lo + 8 * r < S) {
+        lse_r[r] = lse[static_cast<size_t>(bh) * S + row_lo + 8 * r];
+        delta_r[r] = delta[static_cast<size_t>(bh) * S + row_lo + 8 * r];
+      }
+    }
+  }
+  auto stage_pairs = [&](int st) {
+    return reinterpret_cast<const float4*>(pair_ring + st * T::kPairBytes);
+  };
+
+  // p, dz: the last tile's terms, in f32 (p is dk/dv's alone).  They are split
+  // into the fragments while no wgmma is in flight, and the fragments then
+  // stay untouched until the gradient products that read them have finished.
+  float s[16], dp[16], acc0[32], acc1[32], p[16], dz[16];
+  uint32_t dz_hi[16], dz_lo[16], p_hi[16], p_lo[16];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc0[i] = acc1[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    p[i] = 0.f;
+    p_hi[i] = p_lo[i] = 0u;
+  }
+  auto pin_gradients = [&] {
+    pin(acc0);
+    pin(dz_hi);
+    pin(dz_lo);
+    if constexpr (kDkv) {
+      pin(acc1);
+      pin(p_hi);
+      pin(p_lo);
+    }
+  };
+  // tile t_prev's fragments, ready to be multiplied into the gradients
+  auto split_prev = [&](int t_prev) {
+    split_fragments(dz, dz_hi, dz_lo);
+    if constexpr (kDkv) split_fragments(p, p_hi, p_lo);
+    mbar_wait(full_tr(t_prev % kStages), (t_prev / kStages) & 1);
+    pin_gradients();
+  };
+  const uint32_t own1 = own + kF32OwnBytes;
+  float* sum0 = sums + tw;
+  float* sum1 = sums + 32 * kWgThreads + tw;
+#pragma unroll
+  for (int i = 0; i < 32 * T::kOutputs; ++i) sum0[i * kWgThreads] = 0.f;
+
+  mbar_wait(own_bar, 0);
+  mbar_wait(full_nat(0), 0);
+  wgmma_fence();
+  start_tf32_scores(s, dp, own, own1, nat_ring);
+  wgmma_wait<0>();
+  pin(s);
+  pin(dp);
+  tf32_terms<kDkv>(s, dp, p, dz, lse_r, delta_r, stage_pairs(0), S, c2);
+  if (lane == 0) mbar_arrive(empty_nat(0));
+
+#pragma unroll 1
+  for (int t = 1; t < n_tiles; ++t) {
+    // tile t's scores and tile t-1's gradient products start together
+    const int st = t % kStages;
+    const int prev = (t - 1) % kStages;
+    split_prev(t - 1);
+    mbar_wait(full_nat(st), (t / kStages) & 1);
+    pin(s);
+    pin(dp);
+    wgmma_fence();
+    start_tf32_scores(s, dp, own, own1, nat_ring + st * T::kNatStage);
+    start_tf32_gradients<kDkv>(acc0, acc1, dz_hi, dz_lo, p_hi, p_lo, tr_ring + prev * T::kTrStage,
+                               (t - 1) % kPromoteTiles == 0);
+    wgmma_wait<1>();  // tile t's scores: their exp2 runs beside the gradient products
+    pin(s);
+    pin(dp);
+    tf32_terms<kDkv>(s, dp, p, dz, lse_r, delta_r, stage_pairs(st), S - t * kF32N, c2);
+    if (lane == 0) mbar_arrive(empty_nat(st));
+    wgmma_wait<0>();
+    pin_gradients();
+    if (lane == 0) mbar_arrive(empty_tr(prev));
+    if ((t - 1) % kPromoteTiles == kPromoteTiles - 1) {
+      promote(sum0, acc0);
+      if constexpr (kDkv) promote(sum1, acc1);
+    }
+  }
+  split_prev(n_tiles - 1);
+  wgmma_fence();
+  start_tf32_gradients<kDkv>(acc0, acc1, dz_hi, dz_lo, p_hi, p_lo,
+                             tr_ring + (n_tiles - 1) % kStages * T::kTrStage,
+                             (n_tiles - 1) % kPromoteTiles == 0);
+  wgmma_wait<0>();
+  pin_gradients();
+
+  const size_t row_stride = static_cast<size_t>(H) * kHeadDim;
+  const size_t head_base =
+      static_cast<size_t>(b) * S * row_stride + static_cast<size_t>(h) * kHeadDim;
+  store_rows_f32(out0, acc0, sum0, scale0, head_base, row_stride, row_lo, S, c2);
+  if constexpr (kDkv) store_rows_f32(out1, acc1, sum1, 1.f, head_base, row_stride, row_lo, S, c2);
+}
+
+__global__ void __launch_bounds__(kF32Threads, 1)
+flash_bwd_dq_tf32_kernel(const __grid_constant__ CUtensorMap qs_map,
+                         const __grid_constant__ CUtensorMap do_map,
+                         const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap v_map,
+                         const __grid_constant__ CUtensorMap kt_map,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         float* __restrict__ dq, int S, int H, float scale_dq) {
+  bwd_tf32_body<false>(&qs_map, &do_map, &k_map, &v_map, &kt_map, nullptr, lse, delta, nullptr,
+                       dq, nullptr, S, H, scale_dq);
+}
+
+__global__ void __launch_bounds__(kF32Threads, 1)
+flash_bwd_dkv_tf32_kernel(const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const __grid_constant__ CUtensorMap qs_map,
+                          const __grid_constant__ CUtensorMap do_map,
+                          const __grid_constant__ CUtensorMap qst_map,
+                          const __grid_constant__ CUtensorMap dot_map,
+                          const float2* __restrict__ pairs, float* __restrict__ dk,
+                          float* __restrict__ dv, int S, int H, float scale_dk) {
+  bwd_tf32_body<true>(&k_map, &v_map, &qs_map, &do_map, &qst_map, &dot_map, nullptr, nullptr,
+                      pairs, dk, dv, S, H, scale_dk);
+}
+
+// The f32 kernels' workspace: split copies of one [B, S, H, 64] tensor each,
+// `part` floats apiece (padded rows included)
+size_t f32_part(int B, int S, int H) {
+  const size_t S_pad = (S + kF32Rows - 1) / kF32Rows * kF32Rows;
+  return static_cast<size_t>(B) * H * S_pad * 2 * kHeadDim;
+}
+
+cudaError_t launch_split(const void* x, float* nat, float* tr, int B, int S, int H, float scale,
+                         cudaStream_t stream) {
+  const int S_pad = (S + kF32Rows - 1) / kF32Rows * kF32Rows;
+  split_tf32_kernel<<<dim3(S_pad / kSplitRows, B * H), kSplitThreads, 0, stream>>>(
+      static_cast<const float*>(x), nat, tr, S, H, S_pad, scale);
+  return cudaGetLastError();
+}
+
+// maps over a natural split copy ([bh][4 = hi/lo x half][S_pad][32], boxes of
+// `rows` rows: [4][rows][32]) and a transposed one ([bh][hi/lo][64][S_pad],
+// boxes of [2][64][32])
+cudaError_t make_nat_map(CUtensorMap* map, const float* ws, int B, int S, int H, int rows) {
+  const cuuint64_t S_pad = (S + kF32Rows - 1) / kF32Rows * kF32Rows;
+  const cuuint64_t dims[4] = {32, S_pad, 4, static_cast<cuuint64_t>(B) * H};
+  const cuuint64_t strides[3] = {kRowBytes, S_pad * kRowBytes, 4 * S_pad * kRowBytes};
+  const cuuint32_t box[4] = {32, static_cast<cuuint32_t>(rows), 4, 1};
+  return make_f32_tile_map(map, ws, dims, strides, box);
+}
+
+cudaError_t make_tr_map(CUtensorMap* map, const float* ws, int B, int S, int H) {
+  const cuuint64_t S_pad = (S + kF32Rows - 1) / kF32Rows * kF32Rows;
+  const cuuint64_t dims[4] = {S_pad, kHeadDim, 2, static_cast<cuuint64_t>(B) * H};
+  const cuuint64_t strides[3] = {S_pad * 4, kHeadDim * S_pad * 4, 2 * kHeadDim * S_pad * 4};
+  const cuuint32_t box[4] = {kF32N, kHeadDim, 2, 1};
+  return make_f32_tile_map(map, ws, dims, strides, box);
+}
+
+cudaError_t launch_dq_tf32(const void* q, const void* k, const void* v, const void* dout,
+                           const void* lse, const void* delta, void* dq, void* ws, int B, int S,
+                           int H, float scale_qk, float scale_dq, cudaStream_t stream) {
+  const size_t part = f32_part(B, S, H);
+  float* qs = static_cast<float*>(ws);
+  float* dos = qs + part;
+  float* ks = qs + 2 * part;
+  float* vs = qs + 3 * part;
+  float* kt = qs + 4 * part;
+  cudaError_t err = launch_split(q, qs, nullptr, B, S, H, scale_qk, stream);
+  if (err == cudaSuccess) err = launch_split(dout, dos, nullptr, B, S, H, 1.f, stream);
+  if (err == cudaSuccess) err = launch_split(k, ks, kt, B, S, H, 1.f, stream);
+  if (err == cudaSuccess) err = launch_split(v, vs, nullptr, B, S, H, 1.f, stream);
+  CUtensorMap maps[5];
+  if (err == cudaSuccess) err = make_nat_map(&maps[0], qs, B, S, H, kF32Rows);
+  if (err == cudaSuccess) err = make_nat_map(&maps[1], dos, B, S, H, kF32Rows);
+  if (err == cudaSuccess) err = make_nat_map(&maps[2], ks, B, S, H, kF32N);
+  if (err == cudaSuccess) err = make_nat_map(&maps[3], vs, B, S, H, kF32N);
+  if (err == cudaSuccess) err = make_tr_map(&maps[4], kt, B, S, H);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(flash_bwd_dq_tf32_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               F32Tile<false>::kSmemBytes);
+  }
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + kF32Rows - 1) / kF32Rows, B * H);
+  flash_bwd_dq_tf32_kernel<<<grid, kF32Threads, F32Tile<false>::kSmemBytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dq), S, H, scale_dq);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dkv_tf32(const void* q, const void* k, const void* v, const void* dout,
+                            const void* lse, const void* delta, void* dk, void* dv, void* ws,
+                            void* pairs, int B, int S, int H, float scale_qk, float scale_dk,
+                            cudaStream_t stream) {
+  const int S_pad = (S + kPairTile - 1) / kPairTile * kPairTile;
+  pad_rows_kernel<<<dim3((S_pad + kFoldThreads - 1) / kFoldThreads, B * H), kFoldThreads, 0,
+                    stream>>>(static_cast<const float*>(lse), static_cast<const float*>(delta),
+                              static_cast<float2*>(pairs), S, S_pad);
+  const size_t part = f32_part(B, S, H);
+  float* ks = static_cast<float*>(ws);
+  float* vs = ks + part;
+  float* qs = ks + 2 * part;
+  float* dos = ks + 3 * part;
+  float* qst = ks + 4 * part;
+  float* dot = ks + 5 * part;
+  cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) err = launch_split(k, ks, nullptr, B, S, H, 1.f, stream);
+  if (err == cudaSuccess) err = launch_split(v, vs, nullptr, B, S, H, 1.f, stream);
+  if (err == cudaSuccess) err = launch_split(q, qs, qst, B, S, H, scale_qk, stream);
+  if (err == cudaSuccess) err = launch_split(dout, dos, dot, B, S, H, 1.f, stream);
+  CUtensorMap maps[6];
+  if (err == cudaSuccess) err = make_nat_map(&maps[0], ks, B, S, H, kF32Rows);
+  if (err == cudaSuccess) err = make_nat_map(&maps[1], vs, B, S, H, kF32Rows);
+  if (err == cudaSuccess) err = make_nat_map(&maps[2], qs, B, S, H, kF32N);
+  if (err == cudaSuccess) err = make_nat_map(&maps[3], dos, B, S, H, kF32N);
+  if (err == cudaSuccess) err = make_tr_map(&maps[4], qst, B, S, H);
+  if (err == cudaSuccess) err = make_tr_map(&maps[5], dot, B, S, H);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(flash_bwd_dkv_tf32_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               F32Tile<true>::kSmemBytes);
+  }
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + kF32Rows - 1) / kF32Rows, B * H);
+  flash_bwd_dkv_tf32_kernel<<<grid, kF32Threads, F32Tile<true>::kSmemBytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], static_cast<const float2*>(pairs),
+      static_cast<float*>(dk), static_cast<float*>(dv), S, H, scale_dk);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16; both run on the tensor cores and take a
+// workspace `ws` the caller allocates: in bf16 [B, S, H, 64] bf16 for the
+// folded q', in f32 five split copies of f32_part() floats each (q', dO, K, V
+// and Kᵀ; S_pad = ceil(S/64)*64).  scale_qk = log2(e)/sqrt(D) folds q into q';
+// scale_dq = 1/sqrt(D).  Returns a cudaError_t (0 on success); the caller
+// raises on anything else.
+extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                                 const void* lse, const void* delta, void* dq, void* ws, int B,
+                                 int S, int H, int D, int dtype, float scale_qk, float scale_dq,
+                                 void* stream) {
+  if (D != kHeadDim || B <= 0 || S <= 0 || H <= 0 || B * H > 65535 || ws == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    if (qs == nullptr || pairs == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    cudaError_t err = launch_fold_q(q, qs, B, S, H, scale_qk, st);
-    if (err == cudaSuccess) {
-      err = launch_dkv_wgmma(k, v, dout, lse, delta, dk, dv, qs, pairs, B, S, H, scale_dk, st);
-    }
-    return static_cast<int>(err);
+  if (dtype == 0) {
+    return static_cast<int>(
+        launch_dq_tf32(q, k, v, dout, lse, delta, dq, ws, B, S, H, scale_qk, scale_dq, st));
   }
-  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((S + kTile - 1) / kTile, B * H);
-  flash_bwd_dkv_kernel<float><<<grid, kThreads, 0, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv), S, H,
-      scale_qk, scale_dk);
-  return static_cast<int>(cudaGetLastError());
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = launch_fold_q(q, ws, B, S, H, scale_qk, st);
+  if (err == cudaSuccess) {
+    err = launch_dq_wgmma(k, v, dout, lse, delta, dq, ws, B, S, H, scale_dq, st);
+  }
+  return static_cast<int>(err);
+}
+
+// scale_dk = ln(2): dk = dz^T . q_orig / sqrt(D) = ln(2) * dz^T . q'.  `ws` as
+// for dq, in f32 six copies (K, V, q', dO, q'ᵀ, dOᵀ); `pairs` is one more
+// workspace: [B*H, ceil(S/64)*64, 2] f32.
+extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+                                  const void* lse, const void* delta, void* dk, void* dv,
+                                  void* ws, void* pairs, int B, int S, int H, int D, int dtype,
+                                  float scale_qk, float scale_dk, void* stream) {
+  if (D != kHeadDim || B <= 0 || S <= 0 || H <= 0 || B * H > 65535 || ws == nullptr ||
+      pairs == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return static_cast<int>(launch_dkv_tf32(q, k, v, dout, lse, delta, dk, dv, ws, pairs, B, S,
+                                            H, scale_qk, scale_dk, st));
+  }
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = launch_fold_q(q, ws, B, S, H, scale_qk, st);
+  if (err == cudaSuccess) {
+    err = launch_dkv_wgmma(k, v, dout, lse, delta, dk, dv, ws, pairs, B, S, H, scale_dk, st);
+  }
+  return static_cast<int>(err);
 }

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the tensor-core attention kernels: the
-// mbarrier, TMA and wgmma instructions as inline PTX, the shared-memory matrix
-// descriptor of a [rows, 64] bf16 tile in the 128-byte swizzle, and the host's
-// tensor-map encoder.  Nothing here is a kernel: flash_attn_fwd.cu and
+// mbarrier, TMA and wgmma (bf16 and TF32) instructions as inline PTX, the TF32
+// split, the shared-memory matrix descriptor of a tile in the 128-byte
+// swizzle, and the host's tensor-map encoders.  Nothing here is a kernel: flash_attn_fwd.cu and
 // flash_attn_bwd.cu compose these.
 //
 // The one tile layout everything agrees on: a row is 64 bf16 = 128 bytes, rows
@@ -272,6 +272,68 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// ---- TF32: the f32 backward's products --------------------------------------
+//
+// TF32 wgmma takes both shared-memory operands K-major only (the transpose
+// bits exist for 16-bit types alone), 8 inner elements = 32 bytes a step: in
+// a [rows, 32] f32 tile of the 128-byte swizzle (one swizzle row a tile row)
+// the slice for inner index 8*i starts 32*i bytes on, as a bf16 k16 step does,
+// so tile_desc() serves it unchanged.  An f32 row of 64 is two such tiles
+// (halves of the head dim) side by side: step 4 starts on the second one.
+
+// x rounded to TF32 (10 mantissa bits, nearest, ties away from zero), as f32
+// bits with the 13 dropped bits cleared
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return y & 0xffffe000u;
+}
+
+// x = hi + lo + O(2^-22 |x|), both exact TF32 values: hi·hi + hi·lo + lo·hi
+// keeps ~21 bits of a product where hi·hi keeps ~11
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// d[64 x 32] (+)= A[64 x 8] · B[32 x 8]ᵀ, TF32 in, f32 out; A and B K-major
+// tiles in shared memory.  d as wgmma_m64n32k16_ss's.
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_ss(float (&d)[16], uint64_t desc_a,
+                                                       uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n"
+      "}\n"
+      : HOPPER_REP16(HOPPER_RW_F, d)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d[64 x 64] += A[64 x 8] · B[64 x 8]ᵀ; A four registers of TF32 values: a[0]
+// row t/4, a[1] row t/4 + 8, both at inner index t%4; a[2], a[3] the same rows
+// at t%4 + 4 (not the accumulator's 2(t%4), 2(t%4) + 1: see flash_attn_bwd.cu);
+// B a K-major tile in shared memory.  accumulate = 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32], const uint32_t* a,
+                                                       uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : HOPPER_REP32(HOPPER_RW_F, d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
 // ---- the host's tensor map ----------------------------------------------------
 
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -314,6 +376,22 @@ inline cudaError_t make_head_tile_map(CUtensorMap* map, const void* base, int B,
   const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                              dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Tensor map over a 4-D f32 array (dims innermost first, strides in bytes of
+// dims 1-3), boxes of `box` in the 128-byte swizzle: box[0] must be 32 (one
+// swizzle row).  The f32 backward's workspaces, whose shapes it chooses.
+inline cudaError_t make_f32_tile_map(CUtensorMap* map, const void* base,
+                                     const cuuint64_t (&dims)[4], const cuuint64_t (&strides)[3],
+                                     const cuuint32_t (&box)[4]) {
+  const EncodeTiledFn encode = encode_tiled_fn();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(base),
                               dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                               CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -18,10 +18,13 @@ for the backward:
 - ``flash_attention_bwd_dq`` / ``flash_attention_bwd_dkv``: the
   FlashAttention-2 backward, p recomputed from lse.  lse is the same quantity
   under either forward, so one backward serves both.  Two kernels each too
-  (``csrc/flash_attn_bwd.cu``), by dtype alone: bf16 on the tensor cores (a
-  CTA owns 128 q rows or keys, the other side's 64-row tiles come through a
-  TMA ring, the bf16-rounded p and dz are the A fragments of the gradient
-  products), f32 on the FMA pipes.
+  (``csrc/flash_attn_bwd.cu``), by dtype alone, both on the tensor cores.
+  bf16: a CTA owns 128 q rows or keys, the other side's 64- or 32-row tiles
+  come through a TMA ring, the bf16-rounded p and dz are the A fragments of
+  the gradient products.  f32: every product is error-compensated TF32
+  (3xTF32: x = hi + lo, hi·hi + hi·lo + lo·hi, ~21 bits; TF32 flags do not
+  govern it) on ``wgmma``; a pre-pass writes split and transposed copies of
+  the operands into a workspace, a CTA owns 64 rows and streams 32 a stage.
 
 Each wrapper dispatches on where its inputs live: a CUDA tensor launches the
 hand-written kernel (``csrc/*.cu``, built with nvcc on first use and bound
@@ -49,6 +52,10 @@ HEAD_DIM = 64  # the kernels' compiled head width (every DA3 tier)
 # dk/dv, whose (lse, Δ) pairs lie in rows padded to multiples of 64 (kPairTile)
 BWD_TILE = 64
 BWD_TILE_DKV = 32
+# the f32 (3xTF32) backward kernels: 64 own rows a CTA (every workspace pads S
+# to a multiple of it) and 32 rows of the other side a stage, both kernels
+BWD_F32_ROWS = 64
+BWD_F32_TILE = 32
 # keys per online-softmax update of the stable forward: the bf16 kernel's key
 # tile (kTileK), where p is rounded against the running max.  The f32 kernel
 # steps by 16 keys, which only reorders f32 sums: p is not rounded there.
@@ -392,15 +399,26 @@ def flash_attention_stable(
     return o, lse
 
 
-def _ptr(t: torch.Tensor | None) -> int | None:
-    return None if t is None else t.data_ptr()
-
-
-def _folded_q_workspace(q: torch.Tensor) -> torch.Tensor | None:
-    """Where the bf16 backward kernels' pre-pass writes q' for TMA to load
-    (the f32 kernels fold q as they stage it and take none).  The caller holds
-    it until the launch is queued: the allocator reuses it in stream order."""
-    return torch.empty_like(q) if q.dtype == torch.bfloat16 else None
+def backward_workspaces(q: torch.Tensor, dkv: bool) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """``(ws, pairs)`` of a backward kernel on q's device.  bf16: ``ws`` takes
+    the folded q' (``[B, S, H, D]``); f32: the pre-pass's split copies, five
+    for dq (q', dO, K, V, Kᵀ) and six for dk/dv (K, V, q', dO, q'ᵀ, dOᵀ) of
+    ``B·H·S_pad·2·D`` floats each, S_pad = S rounded up to ``BWD_F32_ROWS``.
+    ``pairs`` (dk/dv only): the (lse, Δ) pairs in rows padded to whole
+    ``BWD_TILE``s.  The caller holds both until the launch is queued: the
+    allocator reuses them in stream order."""
+    B, S, H, D = q.shape
+    if q.dtype == torch.bfloat16:
+        ws = torch.empty_like(q)
+    else:
+        s_pad = -(-S // BWD_F32_ROWS) * BWD_F32_ROWS
+        ws = torch.empty((6 if dkv else 5) * B * H * s_pad * 2 * D, dtype=torch.float32,
+                         device=q.device)
+    pairs = None
+    if dkv:
+        pairs = torch.empty(B * H, -(-S // BWD_TILE) * BWD_TILE, 2, dtype=torch.float32,
+                            device=q.device)
+    return ws, pairs
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta) -> torch.Tensor:
@@ -411,9 +429,9 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta) -> torch.Tensor:
     _check_rows(q, lse, delta)
     B, S, H, D = q.shape
     dq = torch.empty_like(q)
-    qs = _folded_q_workspace(q)
+    ws, _ = backward_workspaces(q, dkv=False)
     launch_kernel("flash_attn_bwd_dq", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), _ptr(qs),
+                  do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), ws.data_ptr(),
                   B, S, H, D, DTYPE_CODES[q.dtype], _scale(D), 1.0 / D ** 0.5)
     flash_attention_bwd_dq.launches += 1
     return dq
@@ -428,15 +446,11 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta) -> tuple[torch.Tensor, torc
     B, S, H, D = q.shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    qs = _folded_q_workspace(q)
-    pairs = None
-    if q.dtype == torch.bfloat16:
-        # (lse, Δ) pairs in rows padded to whole tiles, laid out by the kernel's pre-pass
-        pairs = torch.empty(B * H, -(-S // BWD_TILE) * BWD_TILE, 2, dtype=torch.float32,
-                            device=q.device)
+    ws, pairs = backward_workspaces(q, dkv=True)
     launch_kernel("flash_attn_bwd_dkv", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                  _ptr(qs), _ptr(pairs), B, S, H, D, DTYPE_CODES[q.dtype], _scale(D), LN2)
+                  ws.data_ptr(), pairs.data_ptr(), B, S, H, D, DTYPE_CODES[q.dtype], _scale(D),
+                  LN2)
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 

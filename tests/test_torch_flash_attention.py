@@ -22,6 +22,8 @@ import torch
 import chip_smoke
 from da3slam_tpu_torch.ops.attention import multi_head_attention
 from da3slam_tpu_torch.ops.flash_attention import (
+    BWD_F32_ROWS,
+    BWD_F32_TILE,
     BWD_TILE,
     BWD_TILE_DKV,
     LN2,
@@ -420,17 +422,28 @@ class TestTileModel:
         assert (o.float() - o_ref.float()).abs().max().item() > chip_smoke.fwd_bound(o_ref)
 
 
-def anti_aligned_inputs(S, B=1, H=2, seed=90):
-    """bf16 q, k, v, dO whose every logit is near -216 (q opposite to keys that
-    all point one way), with O, lse and Δ from the plain stable forward (the
-    bound forward's shift would underflow every p): lse ≈ -216 + log2 S, so a
-    zero-filled key's p = exp2(0 - lse) overflows f32."""
+def anti_aligned_inputs(S, B=1, H=2, seed=90, dtype=torch.bfloat16, spread=None):
+    """q, k, v, dO (bf16 unless ``dtype``) whose every logit is near -216 (q
+    opposite to keys that all point one way), with O, lse and Δ from the plain
+    stable forward (the bound forward's shift would underflow every p): lse ≈
+    -216 + log2 S, so a zero-filled key's p = exp2(0 - lse) overflows f32.
+
+    With keys this alike, dq = Σ dz·k/√D is a cancellation (Σ_j dz_ij = 0) of
+    terms ~12x its size, and f32's own rounding of s (|s| ~ 216) shows in it
+    at ~2e-4 of max|dq|.  ``spread``: each key gets a component orthogonal to
+    the common direction of that norm times |u| instead (keys ⟂ u change no
+    logit), so that dq is no cancellation and f32 bounds apply."""
     rng = np.random.default_rng(seed)
     u = np.full(64, 0.125, np.float32)
-    k = u + 0.01 * rng.normal(size=(B, S, H, 64)).astype(np.float32)
+    noise = rng.normal(size=(B, S, H, 64)).astype(np.float32)
+    if spread is None:
+        k = u + 0.01 * noise
+    else:
+        w = noise - (noise @ u)[..., None] * u / (u @ u)
+        k = u + spread * w / np.linalg.norm(w, axis=-1, keepdims=True)
     q = -1200.0 * u + rng.normal(size=(B, S, H, 64)).astype(np.float32)
     v, g = (rng.normal(size=(B, S, H, 64)).astype(np.float32) for _ in range(2))
-    q, k, v, g = torch_inputs(torch.bfloat16, q, k, v, g)
+    q, k, v, g = torch_inputs(dtype, q, k, v, g)
     o, lse = flash_attention_stable_reference(q, k, v)
     return q, k, v, g, lse, attention_delta(o, g)
 
@@ -531,6 +544,184 @@ class TestBackwardTileModel:
         assert torch.isfinite(dk).all() and torch.isfinite(dv).all()
 
 
+def tf32(x):
+    """x rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it (10 mantissa bits,
+    to nearest, ties away from zero), on the f32 bits, the 13 dropped bits 0."""
+    b = (x.float().contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF) + 0x1000
+    b = b & 0xFFFFE000
+    return torch.where(b >= 2 ** 31, b - 2 ** 32, b).to(torch.int32).view(torch.float32)
+
+
+def split_tf32(x):
+    """x = hi + lo + O(2^-22·|x|), both TF32 (split_tf32 in flash_wgmma.cuh)."""
+    hi = tf32(x)
+    return hi, tf32(x.float() - hi)
+
+
+def mm_tf32(a, b, terms=3):
+    """a @ b as the f32 kernels take it on the tensor cores: lo·hi + hi·lo +
+    hi·hi of the TF32 halves (``terms=1``: hi·hi alone), each product of two
+    TF32 values exact in f32, summed in f32."""
+    (ah, al), (bh, bl) = split_tf32(a), split_tf32(b)
+    if terms == 1:
+        return ah @ bh
+    return al @ bh + ah @ bl + ah @ bh
+
+
+# The f32 kernels' register layouts (flash_attn_bwd.cu, flash_wgmma.cuh), per
+# k8 step of 8 columns: the score accumulator holds element e of a thread t
+# (lane) at row t/4 + 8(e//2), column 2(t%4) + e%2; the TF32 A fragment's slot
+# f at row t/4 + 8(f%2), inner index t%4 + 4(f//2); split_fragments puts
+# element FRAG_FROM_ACC[f] into slot f.
+FRAG_FROM_ACC = (0, 2, 1, 3)
+# position p of each group of 8 in the pre-pass's transposed copies holds row
+# TF32_ROW_AT[p] (tf32_row_at in flash_attn_bwd.cu)
+TF32_ROW_AT = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def fragment_columns():
+    """inner index of the A fragment -> the set of score columns it receives,
+    over the 32 lanes."""
+    cols = {}
+    for lane in range(32):
+        t = lane % 4
+        for f, e in enumerate(FRAG_FROM_ACC):
+            assert f % 2 == e // 2, "slot and element lie in one row"
+            cols.setdefault(t + 4 * (f // 2), set()).add(2 * t + e % 2)
+    return cols
+
+
+def tf32_bwd_tile_model(q, k, v, do, lse, delta, terms=3, mask=True):
+    """The f32 backward kernels' schedule and numerics in plain torch, one
+    (batch, head) at a time: the other side in tiles of BWD_F32_TILE rows, the
+    rows past S zero-filled (the pre-pass's padding) and multiplied like any
+    other; every product as mm_tf32 (``terms=1``: one TF32 product), the
+    gradient products' summed index in the kernels' order (the A columns as
+    the fragments hand them over, the B rows as the pre-pass permutes its
+    transposed copies); dq forces the last tile's scores of columns >= S - k0
+    to -inf (``mask``), dk/dv reads (lse, Δ) = (+inf, 0) for its padded q rows
+    (``mask``; (0, 0) without); the gradients summed in f32 tile by tile.
+    Returns (dq, dk, dv)."""
+    B, S, H, D = q.shape
+    T = BWD_F32_TILE
+    n = -(-S // T)
+    pad = n * T - S
+    into_slot = {i: c.pop() for i, c in fragment_columns().items()}
+    a_cols = [8 * (c // 8) + into_slot[c % 8] for c in range(T)]
+    b_rows = [8 * (c // 8) + TF32_ROW_AT[c % 8] for c in range(T)]
+
+    def gradient_product(a, b):  # a [rows, T] in score order, b [T, D]
+        return mm_tf32(a[:, a_cols], b[b_rows], terms)
+
+    def padded(x):
+        return torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, pad))
+
+    qs = q.float() * (LOG2E / D ** 0.5)
+    qp, kp, vp, gp = padded(qs), padded(k), padded(v), padded(do)
+    lse, delta = lse.reshape(B, H, S), delta.reshape(B, H, S)
+    lse_p = torch.nn.functional.pad(lse, (0, pad), value=torch.inf if mask else 0.0)
+    delta_p = torch.nn.functional.pad(delta, (0, pad), value=0.0)
+    dq, dk, dv = (torch.zeros(B, S, H, D) for _ in range(3))
+    for b in range(B):
+        for h in range(H):
+            for t in range(n):  # dq: own rows are q, a tile holds keys
+                tile = slice(t * T, (t + 1) * T)
+                sc = mm_tf32(qs[b, :, h], kp[b, tile, h].T, terms)
+                if mask:
+                    sc[:, S - t * T:] = -torch.inf
+                p = torch.exp2(sc - lse[b, h][:, None])
+                dz = p * (mm_tf32(do[b, :, h], vp[b, tile, h].T, terms) - delta[b, h][:, None])
+                dq[b, :, h] += gradient_product(dz, kp[b, tile, h])
+            for t in range(n):  # dk/dv: own rows are keys, a tile holds q rows
+                tile = slice(t * T, (t + 1) * T)
+                p = torch.exp2(mm_tf32(k[b, :, h], qp[b, tile, h].T, terms)
+                               - lse_p[b, h, tile][None, :])
+                dz = p * (mm_tf32(v[b, :, h], gp[b, tile, h].T, terms)
+                          - delta_p[b, h, tile][None, :])
+                dv[b, :, h] += gradient_product(p, gp[b, tile, h])
+                dk[b, :, h] += gradient_product(dz, qp[b, tile, h])
+    return dq / D ** 0.5, LN2 * dk, dv
+
+
+class TestTf32BackwardModel:
+    """The f32 backward kernels' 3xTF32 numerics and tile schedule, modelled
+    on the CPU, are the plain versions' function within chip_smoke's f32
+    bound; one TF32 product is not."""
+
+    def test_tf32_rounding(self):
+        x = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                          1.0 + 2.0 ** -11 - 2.0 ** -23, torch.finfo(torch.float32).max, 0.0])
+        want = torch.tensor([1.0, 1.0 + 2.0 ** -10, 1.0 + 2 * 2.0 ** -10, -(1.0 + 2.0 ** -10),
+                             1.0, torch.inf, 0.0])
+        torch.testing.assert_close(tf32(x), want, rtol=0, atol=0)
+        y = torch.from_numpy(np.random.default_rng(3).normal(size=4096).astype(np.float32))
+        hi, lo = split_tf32(y)
+        assert ((hi.view(torch.int32) & 0x1FFF) == 0).all() and ((lo.view(torch.int32) & 0x1FFF) == 0).all()
+        assert ((hi + lo - y).abs() <= 2.0 ** -22 * y.abs()).all()
+        assert ((hi - y).abs() <= 2.0 ** -11 * y.abs()).all()
+
+    def test_fragment_order_pairs_scores_with_the_prepass_rows(self):
+        """The TF32 A fragment takes a score column other than its inner index
+        (2t where it reads t); the transposed copies' rows follow the same
+        order, so each fragment value meets its own row.  The constants are
+        the ones flash_attn_bwd.cu compiles."""
+        from da3slam_tpu_torch.ops import flash_attention as fa
+
+        cols = fragment_columns()
+        assert sorted(cols) == list(range(8))
+        assert all(len(c) == 1 for c in cols.values()), "one column an inner index, every lane"
+        assert tuple(cols[i].pop() for i in range(8)) == TF32_ROW_AT
+        assert TF32_ROW_AT == tuple(2 * (p & 3) + (p >> 2) for p in range(8))
+        text = (fa._CSRC / "flash_attn_bwd.cu").read_text()
+        assert "constexpr int kFragFromAcc[4] = {0, 2, 1, 3};" in text
+        assert "int tf32_row_at(int p) { return 2 * (p & 3) + (p >> 2); }" in text
+        assert f"constexpr int kF32N = {BWD_F32_TILE};" in text
+        assert f"constexpr int kF32Rows = {BWD_F32_ROWS};" in text
+
+    @pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 128, 129, 300])
+    def test_model_matches_plain(self, S):
+        """Measured ~1e-6 of max|g| (3xTF32 keeps ~21 bits of a product);
+        held to chip_smoke.grad_bound, 1e-4.  At S = 1 dq is cancellation noise
+        around 0: DQ_NOISE."""
+        q, k, v, g = torch_inputs(torch.float32, *rand_qkv(250 + S, 2, S, 2),
+                                  rand_grad(251 + S, (2, S, 2, 64)))
+        o, lse = flash_attention_bound_reference(q, k, v)
+        delta = attention_delta(o, g)
+        refs = flash_attention_backward_reference(q, k, v, o, lse, g)
+        for name, a, r in zip("qkv", tf32_bwd_tile_model(q, k, v, g, lse, delta), refs):
+            err = (a - r).abs().max().item()
+            assert err <= max(chip_smoke.grad_bound(r), DQ_NOISE), f"d{name}: {err}"
+
+    @pytest.mark.parametrize("S", [33, 65, 129, 300])
+    def test_model_survives_overflowing_padding(self, S):
+        """Every logit near -216: the masked model is still the plain backward."""
+        q, k, v, g, lse, delta = anti_aligned_inputs(S, dtype=torch.float32, spread=1.0)
+        refs = (flash_attention_bwd_dq_reference(q, k, v, g, lse, delta),
+                *flash_attention_bwd_dkv_reference(q, k, v, g, lse, delta))
+        for name, a, r in zip("qkv", tf32_bwd_tile_model(q, k, v, g, lse, delta), refs):
+            assert torch.isfinite(a).all(), f"d{name}"
+            assert (a - r).abs().max().item() <= chip_smoke.grad_bound(r), name
+
+    def test_unmasked_padding_breaks_the_bound(self):
+        """As in bf16: without the mask a padded key's p overflows into dq."""
+        q, k, v, g, lse, delta = anti_aligned_inputs(129, dtype=torch.float32, spread=1.0)
+        ref = flash_attention_bwd_dq_reference(q, k, v, g, lse, delta)
+        dq, _, _ = tf32_bwd_tile_model(q, k, v, g, lse, delta, mask=False)
+        assert not (dq - ref).abs().max().item() <= chip_smoke.grad_bound(ref)
+
+    def test_one_tf32_product_breaks_the_bound(self):
+        """hi·hi alone keeps ~11 bits: its error in s (2^-11·|q'||k|) moves p
+        by ~0.4%, which each gradient shows at ~7e-4 of max|g| (3xTF32:
+        1.2e-6), several times grad_bound: the bound tells the designs apart."""
+        q, k, v, g = torch_inputs(torch.float32, *rand_qkv(260, 2, 300, 2),
+                                  rand_grad(261, (2, 300, 2, 64)))
+        o, lse = flash_attention_bound_reference(q, k, v)
+        delta = attention_delta(o, g)
+        refs = flash_attention_backward_reference(q, k, v, o, lse, g)
+        for name, a, r in zip("qkv", tf32_bwd_tile_model(q, k, v, g, lse, delta, terms=1), refs):
+            assert (a - r).abs().max().item() > 4 * chip_smoke.grad_bound(r), f"d{name}"
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -551,6 +742,7 @@ BWD_CARD_CASES = [
     (torch.bfloat16, (1, 777, 6, 64)),
     (torch.bfloat16, (4, 1301, 6, 64)),  # the bf16 step's intra-view call
     (torch.bfloat16, (1, 5204, 6, 64)),  # and its cross-view call
+    (torch.float32, (1, 5204, 6, 64)),  # the f32 step's cross-view call
 ]
 
 
@@ -726,6 +918,53 @@ class TestKernelOnCard:
         for name, err, a in zip("qkv", cuts, grads):
             assert err > chip_smoke.grad_bound(a), f"d{name}: {err}"
 
+    @pytest.mark.parametrize("H", [1, 16])
+    @pytest.mark.parametrize("B", [1, 3])
+    @pytest.mark.parametrize("S", [1, 31, 32, 33, 63, 64, 65, 129, 1301])
+    def test_f32_backward_tile_edges_match_plain(self, card, S, B, H):
+        """The 3xTF32 dq and dk/dv kernels around their 32-row ring tiles and
+        64-row CTAs, at the smoke's f32 bound (dq at S = 1: DQ_NOISE)."""
+        q, k, v = torch_inputs(torch.float32, *rand_qkv(270 + S, B, S, H), device=card)
+        g = torch.from_numpy(rand_grad(271 + S, (B, S, H, 64))).to(card)
+        o, lse = flash_attention_bound(q, k, v)
+        before = (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches)
+        grads = flash_attention_backward(q, k, v, o, lse, g)
+        torch.cuda.synchronize()
+        assert (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches) == \
+            (before[0] + 1, before[1] + 1)
+        refs = flash_attention_backward_reference(q, k, v, o, lse, g)
+        for name, a, r in zip("qkv", grads, refs):
+            assert a.dtype == torch.float32 and torch.isfinite(a).all(), f"d{name}"
+            err = (a - r).abs().max().item()
+            assert err <= max(chip_smoke.grad_bound(r), DQ_NOISE), f"d{name}: {err}"
+
+    @pytest.mark.parametrize("S", [33, 65, 129, 300])
+    def test_f32_backward_masks_overflowing_padding(self, card, S):
+        """f32 inputs whose every logit is near -216: the kernels' gradients
+        stay finite and within the bound of the plain ones."""
+        q, k, v, g, lse, delta = (t.to(card) for t in
+                                  anti_aligned_inputs(S, dtype=torch.float32, spread=1.0))
+        grads = (flash_attention_bwd_dq(q, k, v, g, lse, delta),
+                 *flash_attention_bwd_dkv(q, k, v, g, lse, delta))
+        refs = (flash_attention_bwd_dq_reference(q, k, v, g, lse, delta),
+                *flash_attention_bwd_dkv_reference(q, k, v, g, lse, delta))
+        for name, a, r in zip("qkv", grads, refs):
+            assert torch.isfinite(a).all(), f"d{name}"
+            err = (a - r).abs().max().item()
+            assert err <= chip_smoke.grad_bound(r), f"d{name}: {err}"
+
+    def test_f32_backward_bound_catches_a_dropped_tile(self, card):
+        """At a ragged S the f32 kernels are further from the plain backward
+        that lost its last 32-row key or q tile than the bound allows."""
+        q, k, v = torch_inputs(torch.float32, *rand_qkv(280, 1, 1301, 2), device=card)
+        g = torch.from_numpy(rand_grad(281, (1, 1301, 2, 64))).to(card)
+        o, lse = flash_attention_bound(q, k, v)
+        delta = attention_delta(o, g)
+        grads = flash_attention_backward(q, k, v, o, lse, g)
+        cuts = chip_smoke.dropped_tile_errors(q, k, v, g, lse, delta, grads)
+        for name, err, a in zip("qkv", cuts, grads):
+            assert err > chip_smoke.grad_bound(a), f"d{name}: {err}"
+
     @pytest.mark.parametrize("stable", [False, True])
     def test_bounds_catch_a_dropped_last_tile(self, card, stable):
         """At a ragged S the kernel is further from the plain version that
@@ -773,12 +1012,14 @@ class TestStageTool:
         from da3slam_tpu_torch.tools import flash_bwd_stages as tool
 
         text = (fa._CSRC / tool.SOURCE).read_text()
-        assert tool.cut_source("as_built") == text
         for name in tool.VARIANTS:
-            if name != "as_built":
+            if name.endswith("as_built"):
+                assert tool.cut_source(name) == text, name
+            else:
                 assert tool.cut_source(name) != text, name
         assert f"constexpr int kPairTile = {BWD_TILE};" in text
         assert f"static constexpr int kN = kDkv ? {BWD_TILE_DKV} : {BWD_TILE};" in text
+        assert f"constexpr int kF32N = {BWD_F32_TILE};" in text
 
     def test_backward_tool_refuses_to_run_without_a_card(self):
         from da3slam_tpu_torch.tools import flash_bwd_stages as tool
