@@ -9,13 +9,16 @@ final line:
 2. build: nvcc build of every kernel (flash attention, the flash probes, the
    3x3 conv, the int8 probe), with ptxas's registers, shared memory and spills
    per kernel; a register spill or a serialized wgmma in the forward's or the
-   backward's source fails the phase, and so does an f32 backward kernel
-   without TF32 HGMMA instructions in ``cuobjdump -sass``
+   backward's source fails the phase, and so does an f32 forward or backward
+   kernel without TF32 HGMMA instructions in ``cuobjdump -sass``
 3. kernel vs plain, bound and stable forwards: each kernel against its plain
    torch version, both on the card, at the SMALL tier's shapes, for the bound
-   forward the LARGE tier's, and at lengths around the bf16 kernel's 64-row
-   warpgroup and 128-key tile (CUDA-event times, median of a few runs); the
-   bf16 cross-view call of either mode must run above the f32 pipe's peak rate
+   forward the LARGE tier's, at lengths around the bf16 kernel's 64-row
+   warpgroup and 128-key tile and the f32 kernel's 32-key tile, and in f32 at
+   the SLAM cross length (CUDA-event times, median of a few runs, the SM
+   clock beside each); the plain version without the f32 kernel's last key
+   tile must break each f32 bound; the bf16 cross-view call of either mode
+   must run above the f32 pipe's peak rate
 4. backward vs plain: the dq and dk/dv kernels against the plain backward at
    the training shapes (f32 and bf16), the SLAM shape and lengths around
    either dtype's tiles; the plain version with its last key or q tile
@@ -114,11 +117,18 @@ LARGE_CASES = [
     ("large_cross", torch.bfloat16, (1, 19515, 16, 64)),
 ]
 # lengths around the bf16 kernel's tiles (64 query rows a warpgroup, 128 a CTA,
-# 128 keys a stage): one row, one short of, exactly and one past each edge
+# 128 keys a stage): one row, one short of, exactly and one past each edge;
+# and around the f32 kernel's (32 keys a stage, 64 rows a warpgroup, 128 a CTA)
 EDGE_CASES = [(f"edge{S}", torch.bfloat16, (2, S, 3, 64)) for S in (1, 63, 64, 65, 127, 128, 129)]
+F32_EDGE_CASES = [(f"edge{S}_f32", torch.float32, (2, S, 3, 64))
+                  for S in (1, 31, 32, 33, 63, 64, 65, 127, 128, 129)]
+# the f32 forwards at the SLAM cross length: the tensor cores' truncating sums
+# over 19515 keys (the error must not grow with S)
+F32_LONG_CASES = [("slam_cross_f32", torch.float32, (1, 19515, 6, 64))]
 # the stable forward adds the input where the bound forward underflows: q
 # scaled 30x (diffuse logits of norm ~350); there the bound kernel gives zeros
-STABLE_CASES = [(n, d, s, 1.0) for n, d, s in KERNEL_CASES + EDGE_CASES] + [
+STABLE_CASES = [(n, d, s, 1.0) for n, d, s in KERNEL_CASES + EDGE_CASES + F32_EDGE_CASES
+                + F32_LONG_CASES] + [
     ("30x", torch.float32, (1, 1301, 6, 64), 30.0),
 ]
 # the backward at the training shapes (4 views at 504²: intra 4 x 1301,
@@ -152,8 +162,12 @@ BWD_TENSOR_CORE_CASES = ("slam_cross", "train_cross_bf16")
 # LSE_TOL: dropping the ragged last tile (59 keys) at the cross shape moves
 # both lse and O by about 1e-2.  The stable bf16 kernel and its plain version
 # both round p against the running max after each 128-key tile, so they too
-# differ only in the order of f32 sums (the tensor cores' is not fmaf's); in
-# f32 p is not rounded, and the kernel's 16-key step only reorders sums.
+# differ only in the order of f32 sums (the tensor cores' is not fmaf's).  In
+# f32 p is not rounded, and the kernel's 32-key step only reorders sums; its
+# products are 3xTF32 (~21 bits of each, against f32's 24), its tensor-core
+# sums truncate, and P.V is promoted into f32 sums every 8 tiles.  A kernel
+# that dropped the ragged last 32-key tile breaks F32_TOL and LSE_TOL: the
+# forward phase checks that at every f32 shape.
 BF16_REL_TOL = 2.0 ** -6
 F32_TOL = 5e-5
 LSE_TOL = 1e-3
@@ -342,12 +356,12 @@ def attention_roofline(shape, dtype, flop_per_score: int, n_tensors: int, n_rows
                     n_tensors * B * S * H * D * elem + n_rows * B * H * S * 4, dtype)
 
 
-def backward_roofline(shape, dtype, flop_per_score: int, n_tensors: int) -> dict:
-    """Roofline of a backward kernel (6 dq, 8 dk/dv; lse and Δ in).  The f32
+def tf32_roofline(shape, dtype, flop_per_score: int, n_tensors: int, n_rows: int) -> dict:
+    """Roofline of an attention kernel (4 forward, 6 dq, 8 dk/dv).  The f32
     kernels take each product three times on the TF32 tensor cores (3xTF32),
     so their bound is three times the operations at the TF32 peak; the f32
     FMA pipe's bound stands beside it (``bound_ms_f32_fma``)."""
-    r = attention_roofline(shape, dtype, flop_per_score, n_tensors=n_tensors, n_rows=2)
+    r = attention_roofline(shape, dtype, flop_per_score, n_tensors=n_tensors, n_rows=n_rows)
     if dtype != torch.float32:
         return r
     r.pop("bound_ms_tf32")
@@ -493,15 +507,20 @@ def phase_build() -> None:
     ptxas = {src: [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
                    if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
              for src, log in fa._Kernel.build_logs.items()}
-    hgmma = tensor_core_instructions(fa._Kernel.paths["flash_attn_bwd.cu"])
+    hgmma = {src: tensor_core_instructions(fa._Kernel.paths[src])
+             for src in ("flash_attn_fwd.cu", "flash_attn_bwd.cu")}
     emit("build", seconds=fa._Kernel.build_seconds,
          libraries=[str(p.relative_to(ROOT)) for p in fa._Kernel.paths.values()], ptxas=ptxas,
-         backward_hgmma=hgmma)
-    # the f32 backward kernels run on the tensor cores: TF32 wgmma in their SASS
-    for kernel in ("flash_bwd_dq_tf32_kernel", "flash_bwd_dkv_tf32_kernel"):
-        kinds = next((v for k, v in hgmma.items() if kernel in k), {})
-        if not any(".TF32" in kind for kind in kinds):
-            fail(f"{kernel}: no TF32 HGMMA instruction in its SASS ({kinds})")
+         hgmma=hgmma)
+    # the f32 kernels run on the tensor cores: TF32 wgmma in the SASS of each
+    # (both instantiations of the forward: bound and stable)
+    for src, kernel, n in (("flash_attn_fwd.cu", "flash_fwd_tf32_kernel", 2),
+                           ("flash_attn_bwd.cu", "flash_bwd_dq_tf32_kernel", 1),
+                           ("flash_attn_bwd.cu", "flash_bwd_dkv_tf32_kernel", 1)):
+        found = [kinds for name, kinds in hgmma[src].items() if kernel in name]
+        if len(found) != n or not all(any(".TF32" in kind for kind in kinds) for kinds in found):
+            fail(f"{kernel}: not {n} instantiations with TF32 HGMMA instructions in its SASS "
+                 f"({found})")
     # the tensor-core kernels' accumulators must stay in registers and their
     # wgmmas asynchronous (a log exists when this process built the library,
     # as it does in a fresh checkout)
@@ -511,6 +530,25 @@ def phase_build() -> None:
                   if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
         if spills or "wgmma.mma_async instructions are serialized" in log:
             fail(f"{src}: register spills {spills} or serialized wgmma (ptxas C7513/C7515)")
+
+
+def dropped_key_tile_errors(q, k, v, o, lse) -> dict | None:
+    """Max |Δ| of O and lse against the plain forward over all keys but the
+    f32 kernel's last (ragged) 32-key tile: what a kernel that skipped or
+    mis-masked that tile would show.  O and lse are the same quantities in
+    either mode, so the plain stable forward serves both.  None where the last
+    tile is the only one."""
+    from da3slam_tpu_torch.ops.flash_attention import (
+        FWD_F32_TILE,
+        flash_attention_stable_reference,
+    )
+
+    cut = (q.shape[1] - 1) // FWD_F32_TILE * FWD_F32_TILE
+    if cut == 0:
+        return None
+    o_cut, lse_cut = flash_attention_stable_reference(q, k[:, :cut], v[:, :cut])
+    return {"o": (o.float() - o_cut.float()).abs().max().item(),
+            "lse": (lse - lse_cut).abs().max().item()}
 
 
 def _forward_case(fwd, ref, name, dtype, shape, scale, gen) -> dict:
@@ -525,16 +563,17 @@ def _forward_case(fwd, ref, name, dtype, shape, scale, gen) -> dict:
     lse_tol = LSE_TOL_30X if scale != 1.0 else LSE_TOL
     finite = bool(torch.isfinite(o).all().item())
     ms = cuda_ms(lambda: fwd(q, k, v), reps=5)
+    state = gpu_state()
     plain_ms = cuda_ms(lambda: ref(q, k, v), reps=3)
     B, S, H, D = shape
     row = {"case": name, "dtype": str(dtype).replace("torch.", ""), "shape": list(shape),
            "q_scale": scale, "max_abs_err": err, "tol": tol,
            "plain_max_abs": o_ref.float().abs().max().item(), "lse_max_abs_err": lse_err,
-           "lse_tol": lse_tol, "ms": ms, "plain_ms": plain_ms,
+           "lse_tol": lse_tol, "ms": ms, "gpu_state": state, "plain_ms": plain_ms,
            "library_ms": sdpa_ms(q, k, v), "library": "F.scaled_dot_product_attention",
            "kernel_tflops": 4 * B * H * S * S * D / ms / 1e9,
            "exp2_floor_ms": B * H * S * S / PEAK_EXP2_PER_S * 1e3,
-           **attention_roofline(shape, dtype, 4, n_tensors=4, n_rows=1)}
+           **tf32_roofline(shape, dtype, 4, n_tensors=4, n_rows=1)}
     if scale != 1.0:
         from da3slam_tpu_torch.ops.flash_attention import flash_attention_bound
 
@@ -546,6 +585,11 @@ def _forward_case(fwd, ref, name, dtype, shape, scale, gen) -> dict:
     if not lse_err <= lse_tol:
         fail(f"{fwd.__name__} lse disagrees with its plain version at {name}: "
              f"{lse_err} > {lse_tol}")
+    if dtype == torch.float32:
+        row["dropped_tile_err"] = cut = dropped_key_tile_errors(q, k, v, o, lse)
+        if cut is not None and not (cut["o"] > tol and cut["lse"] > lse_tol):
+            fail(f"the {fwd.__name__} bounds at {name} ({tol}, {lse_tol}) would pass a dropped "
+                 f"last key tile ({cut})")
     # above the f32 pipe's peak only the tensor cores can be at work
     f32_peak_tflops = PEAK_FLOPS[torch.float32] / 1e12
     if name == "cross" and dtype == torch.bfloat16 and not row["kernel_tflops"] > f32_peak_tflops:
@@ -560,7 +604,8 @@ def phase_forwards() -> dict:
     rows = {}
     for kernel, fwd, ref, cases in (
         ("flash_attn_bound_fwd", fa.flash_attention_bound, fa.flash_attention_bound_reference,
-         [(n, d, s, 1.0) for n, d, s in KERNEL_CASES + LARGE_CASES + EDGE_CASES]),
+         [(n, d, s, 1.0) for n, d, s in
+          KERNEL_CASES + LARGE_CASES + EDGE_CASES + F32_EDGE_CASES + F32_LONG_CASES]),
         ("flash_attn_stable_fwd", fa.flash_attention_stable, fa.flash_attention_stable_reference,
          STABLE_CASES),
     ):
@@ -630,10 +675,10 @@ def phase_backward() -> dict:
         # dq reads q, k, v, dO, lse, Δ and writes dq; dk/dv writes two tensors
         rows["flash_attn_bwd_dq"].append({
             **row, "max_abs_err": errs["dq"], "ms": dq_ms, "plain_ms": dq_plain,
-            **backward_roofline(shape, dtype, 6, n_tensors=5)})
+            **tf32_roofline(shape, dtype, 6, n_tensors=5, n_rows=2)})
         rows["flash_attn_bwd_dkv"].append({
             **row, "max_abs_err": max(errs["dk"], errs["dv"]), "ms": dkv_ms,
-            "plain_ms": dkv_plain, **backward_roofline(shape, dtype, 8, n_tensors=6)})
+            "plain_ms": dkv_plain, **tf32_roofline(shape, dtype, 8, n_tensors=6, n_rows=2)})
         del q, k, v, g, o, lse, delta, dq, dk, dv, refs
         torch.cuda.empty_cache()
     return rows
@@ -773,9 +818,13 @@ def _kernel_category(name: str) -> str:
     if any(s in name for s in ("flash_fwd", "key_norm_max", "flash_probe", "int8_flash")):
         return "attention_fwd"
     # the backward kernels and their pre-passes (q' folded, (lse, Δ) pairs
-    # padded, the f32 operands split into TF32 halves)
-    if any(s in name for s in ("flash_bwd", "fold_q", "pad_rows", "split_tf32")):
+    # padded)
+    if any(s in name for s in ("flash_bwd", "fold_q", "pad_rows")):
         return "attention_bwd"
+    # the f32 operands split into TF32 halves: one kernel serves the forwards'
+    # pre-pass and the backward's, so its name cannot tell them apart
+    if "split_tf32" in name:
+        return "attention_f32_split (fwd and bwd)"
     low = name.lower()
     if any(s in low for s in ("conv", "cudnn", "fprop", "dgrad", "wgrad")):
         return "conv (DPT head, patch embed)"

@@ -97,10 +97,11 @@
 // dq 0.378, dk/dv 0.504 ms, against 0.931 and 1.242 on the f32 FMA pipes).
 //   - TF32 wgmma reads both shared-memory operands K-major only (no transpose
 //     bit below 16 bits), so the gradient products' B operands are laid out
-//     with the summed dimension contiguous: a pre-pass (split_tf32_kernel)
-//     writes, per input tensor, its split copy [bh][hi/lo][half][S_pad][32]
-//     (q' folded in, rows padded with zeros to S_pad = ceil(S/64)*64) and,
-//     where a gradient product needs it, the transposed split copy
+//     with the summed dimension contiguous: a pre-pass (split_tf32_kernel in
+//     flash_tf32.cuh, shared with the f32 forwards) writes, per input
+//     tensor, its split copy [bh][hi/lo][half][S_pad][32] (q' folded in, rows
+//     padded with zeros to S_pad = ceil(S/64)*64) and, where a gradient
+//     product needs it, the transposed split copy
 //     [bh][hi/lo][64][S_pad]: Kᵀ for dq, q'ᵀ and dOᵀ for dk/dv.  An f32 row
 //     of 64 is two 128-byte swizzle rows, so a tile is two [rows, 32] halves
 //     of the head dim; a k8 step is 32 bytes, four a swizzle row, and step 4
@@ -142,6 +143,7 @@
 // Bound to PyTorch with ctypes (da3slam_tpu_torch/ops/flash_attention.py).
 
 #include "flash_common.cuh"
+#include "flash_tf32.cuh"
 #include "flash_wgmma.cuh"
 
 namespace {
@@ -599,9 +601,8 @@ constexpr int kPromoteTiles = 8;                 // gradient tiles summed on the
 constexpr int kF32OwnBytes = 4 * kF32Rows * kRowBytes;  // [hi/lo][half][64 rows][32 f32]: 32 KB
 constexpr int kF32NatBytes = 4 * kF32N * kRowBytes;     // [hi/lo][half][32 rows][32 f32]: 16 KB
 constexpr int kF32TrBytes = 2 * kHeadDim * kRowBytes;   // [hi/lo][64 dims][32 rows]: 16 KB
-constexpr int kSplitRows = 32;                   // rows a CTA of the pre-pass
-constexpr int kSplitThreads = 256;
-static_assert(kF32Rows == kPairTile, "S is padded to whole own tiles, the pairs' padding");
+static_assert(kF32Rows == kPairTile && kF32Rows == kTf32Pad,
+              "S is padded to whole own tiles, the pairs' and the split copies' padding");
 
 // What differs between the two kernels: dk/dv streams two transposed tiles a
 // stage (q'ᵀ and dOᵀ) and the (lse, Δ) pairs, dq one (Kᵀ).
@@ -622,79 +623,6 @@ struct F32Tile {
                                     (4 * kStages + 1) * 8;
   static_assert(kSmemBytes <= 232448, "shared memory of one CTA");
 };
-
-// Position p of a group of 8 in the transposed copies holds row
-// 8*(p/8) + tf32_row_at(p % 8): the accumulator element that the A fragment's
-// inner index p % 8 takes (split_fragments) is that row's score.
-__device__ __forceinline__ int tf32_row_at(int p) { return 2 * (p & 3) + (p >> 2); }
-
-// x [B, S, H, 64] f32 times `scale`, split into TF32 hi and lo (split_tf32):
-//   nat[bh][hi/lo][half][s][32]    s < S_pad, rows past S are 0: the own and
-//                                  streamed tiles of the score products
-//   tr[bh][hi/lo][d][s']           the same transposed, s' permuted inside each
-//                                  group of 8 (tf32_row_at): the B operands of
-//                                  the gradient products.  nullptr: not written.
-__global__ void __launch_bounds__(kSplitThreads)
-split_tf32_kernel(const float* __restrict__ x, float* __restrict__ nat, float* __restrict__ tr,
-                  int S, int H, int S_pad, float scale) {
-  __shared__ float tile[2][kHeadDim][kSplitRows + 1];
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int s0 = blockIdx.x * kSplitRows;
-  const size_t plane = static_cast<size_t>(S_pad) * kHeadDim;  // one of hi and lo
-  float* nat_bh = nat + static_cast<size_t>(bh) * 2 * plane;
-  for (int c = threadIdx.x; c < kSplitRows * kHeadDim / 4; c += kSplitThreads) {
-    const int r = c / (kHeadDim / 4);
-    const int col = 4 * (c % (kHeadDim / 4));
-    const int s = s0 + r;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (s < S) {
-      v = *reinterpret_cast<const float4*>(
-          x + ((static_cast<size_t>(b) * S + s) * H + h) * kHeadDim + col);
-    }
-    const float in[4] = {v.x * scale, v.y * scale, v.z * scale, v.w * scale};
-    uint32_t hi[4], lo[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) split_tf32(in[i], hi[i], lo[i]);
-    float* dst = nat_bh + (static_cast<size_t>(col / 32) * S_pad + s) * 32 + col % 32;
-    *reinterpret_cast<uint4*>(dst) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-    *reinterpret_cast<uint4*>(dst + plane) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-    if (tr != nullptr) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        tile[0][col + i][r] = __uint_as_float(hi[i]);
-        tile[1][col + i][r] = __uint_as_float(lo[i]);
-      }
-    }
-  }
-  if (tr == nullptr) return;  // the same for every thread of the block
-  __syncthreads();
-  float* tr_bh = tr + static_cast<size_t>(bh) * 2 * plane;
-  for (int w = threadIdx.x; w < 2 * kHeadDim * kSplitRows / 4; w += kSplitThreads) {
-    const int hl = w / (kHeadDim * kSplitRows / 4);
-    const int d = (w / (kSplitRows / 4)) % kHeadDim;
-    const int p0 = 4 * (w % (kSplitRows / 4));
-    float out[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int p = p0 + i;
-      out[i] = tile[hl][d][(p & ~7) + tf32_row_at(p & 7)];
-    }
-    *reinterpret_cast<float4*>(tr_bh + (static_cast<size_t>(hl) * kHeadDim + d) * S_pad + s0 + p0) =
-        make_float4(out[0], out[1], out[2], out[3]);
-  }
-}
-
-// The slice of k-step i (8 inner f32) of split tile `tile` of `rows` rows:
-// hi (lo = 0) or lo, half i / 4 of the head dim
-__device__ __forceinline__ uint64_t nat_desc(uint32_t tile, int rows, int lo, int i) {
-  return tile_desc(tile + (2 * lo + (i >> 2)) * rows * kRowBytes + (i & 3) * 32);
-}
-// k-step j (8 streamed rows) of a transposed tile [hi/lo][64 dims][32 rows]
-__device__ __forceinline__ uint64_t tr_desc(uint32_t tile, int lo, int j) {
-  return tile_desc(tile + lo * kHeadDim * kRowBytes + j * 32);
-}
 
 // s = own0·other0ᵀ and dp = own1·other1ᵀ in 3xTF32: the warpgroup's 64 own
 // rows against the stage's kF32N rows (at `nat`: other0's split tile, then
@@ -777,21 +705,6 @@ __device__ __forceinline__ void tf32_terms(const float (&s)[16], const float (&d
         if constexpr (kDkv) p[idx] = pe;
       }
     }
-  }
-}
-
-// Accumulator-order values of one tile as the split A fragments of its
-// gradient products: slot e of k-step j takes element kFragFromAcc[e] of the
-// same 8 columns.  The rows agree (slots 0, 2: row t/4; 1, 3: + 8), but the
-// fragment's inner index t%4 (+4) gets column 2(t%4) (+1): tf32_row_at, which
-// the pre-pass's transposed copies follow, pairs them up.
-__device__ __forceinline__ void split_fragments(const float (&x)[16], uint32_t (&hi)[16],
-                                                uint32_t (&lo)[16]) {
-  constexpr int kFragFromAcc[4] = {0, 2, 1, 3};
-#pragma unroll
-  for (int j = 0; j < kF32N / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) split_tf32(x[4 * j + kFragFromAcc[e]], hi[4 * j + e], lo[4 * j + e]);
   }
 }
 
@@ -1037,40 +950,6 @@ flash_bwd_dkv_tf32_kernel(const __grid_constant__ CUtensorMap k_map,
                       pairs, dk, dv, S, H, scale_dk);
 }
 
-// The f32 kernels' workspace: split copies of one [B, S, H, 64] tensor each,
-// `part` floats apiece (padded rows included)
-size_t f32_part(int B, int S, int H) {
-  const size_t S_pad = (S + kF32Rows - 1) / kF32Rows * kF32Rows;
-  return static_cast<size_t>(B) * H * S_pad * 2 * kHeadDim;
-}
-
-cudaError_t launch_split(const void* x, float* nat, float* tr, int B, int S, int H, float scale,
-                         cudaStream_t stream) {
-  const int S_pad = (S + kF32Rows - 1) / kF32Rows * kF32Rows;
-  split_tf32_kernel<<<dim3(S_pad / kSplitRows, B * H), kSplitThreads, 0, stream>>>(
-      static_cast<const float*>(x), nat, tr, S, H, S_pad, scale);
-  return cudaGetLastError();
-}
-
-// maps over a natural split copy ([bh][4 = hi/lo x half][S_pad][32], boxes of
-// `rows` rows: [4][rows][32]) and a transposed one ([bh][hi/lo][64][S_pad],
-// boxes of [2][64][32])
-cudaError_t make_nat_map(CUtensorMap* map, const float* ws, int B, int S, int H, int rows) {
-  const cuuint64_t S_pad = (S + kF32Rows - 1) / kF32Rows * kF32Rows;
-  const cuuint64_t dims[4] = {32, S_pad, 4, static_cast<cuuint64_t>(B) * H};
-  const cuuint64_t strides[3] = {kRowBytes, S_pad * kRowBytes, 4 * S_pad * kRowBytes};
-  const cuuint32_t box[4] = {32, static_cast<cuuint32_t>(rows), 4, 1};
-  return make_f32_tile_map(map, ws, dims, strides, box);
-}
-
-cudaError_t make_tr_map(CUtensorMap* map, const float* ws, int B, int S, int H) {
-  const cuuint64_t S_pad = (S + kF32Rows - 1) / kF32Rows * kF32Rows;
-  const cuuint64_t dims[4] = {S_pad, kHeadDim, 2, static_cast<cuuint64_t>(B) * H};
-  const cuuint64_t strides[3] = {S_pad * 4, kHeadDim * S_pad * 4, 2 * kHeadDim * S_pad * 4};
-  const cuuint32_t box[4] = {kF32N, kHeadDim, 2, 1};
-  return make_f32_tile_map(map, ws, dims, strides, box);
-}
-
 cudaError_t launch_dq_tf32(const void* q, const void* k, const void* v, const void* dout,
                            const void* lse, const void* delta, void* dq, void* ws, int B, int S,
                            int H, float scale_qk, float scale_dq, cudaStream_t stream) {
@@ -1089,7 +968,7 @@ cudaError_t launch_dq_tf32(const void* q, const void* k, const void* v, const vo
   if (err == cudaSuccess) err = make_nat_map(&maps[1], dos, B, S, H, kF32Rows);
   if (err == cudaSuccess) err = make_nat_map(&maps[2], ks, B, S, H, kF32N);
   if (err == cudaSuccess) err = make_nat_map(&maps[3], vs, B, S, H, kF32N);
-  if (err == cudaSuccess) err = make_tr_map(&maps[4], kt, B, S, H);
+  if (err == cudaSuccess) err = make_tr_map(&maps[4], kt, B, S, H, kF32N);
   if (err == cudaSuccess) {
     err = cudaFuncSetAttribute(flash_bwd_dq_tf32_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1128,8 +1007,8 @@ cudaError_t launch_dkv_tf32(const void* q, const void* k, const void* v, const v
   if (err == cudaSuccess) err = make_nat_map(&maps[1], vs, B, S, H, kF32Rows);
   if (err == cudaSuccess) err = make_nat_map(&maps[2], qs, B, S, H, kF32N);
   if (err == cudaSuccess) err = make_nat_map(&maps[3], dos, B, S, H, kF32N);
-  if (err == cudaSuccess) err = make_tr_map(&maps[4], qst, B, S, H);
-  if (err == cudaSuccess) err = make_tr_map(&maps[5], dot, B, S, H);
+  if (err == cudaSuccess) err = make_tr_map(&maps[4], qst, B, S, H, kF32N);
+  if (err == cudaSuccess) err = make_tr_map(&maps[5], dot, B, S, H, kF32N);
   if (err == cudaSuccess) {
     err = cudaFuncSetAttribute(flash_bwd_dkv_tf32_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -46,16 +46,16 @@
 // S = 21504, BH = 6: 0.72 ms at the 989 TFLOP/s bf16 peak) against ~66 MB of
 // q/k/v/O (0.02 ms at 3.35 TB/s): the operations, by a factor of ~36.
 //
-// Design: the tiling of flash_fwd_f32_kernel (one CTA per 64-row q tile and
+// Design: the tiling of the first f32 forward (one CTA per 64-row q tile and
 // head, one thread per query row, K/V tiles of 64 keys in shared memory as
 // f32, f32 FMA), with template parameters for the source of m, the mask mode,
 // where the scale goes and which p the denominator sums.  `nh` heads are
 // walked by one CTA one after another (the TPU's heads-per-call knob).  It is
 // bounded by the f32 FMA pipes, and the probes measure what each variation
-// costs on top of that baseline.  The production bf16 forwards have since
-// moved to the tensor cores (flash_attn_fwd.cu), so these are instruments of
-// the FMA design, which the f32 forwards still run; a variation's cost on the
-// wgmma kernel is another measurement.
+// costs on top of that baseline.  The production forwards, bf16 and f32, have
+// since moved to the tensor cores (flash_attn_fwd.cu), so these are
+// instruments of the FMA design; a variation's cost on the wgmma kernels is
+// another measurement.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // Bound to PyTorch with ctypes (da3slam_tpu_torch/ops/flash_probes.py).

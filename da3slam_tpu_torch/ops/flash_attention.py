@@ -12,19 +12,21 @@ for the backward:
 - ``flash_attention_stable``: the online-softmax forward (``stable=True``,
   the public default): running max, rescale by exp2(m_prev − m_new).
 - Both forwards are two kernels each (``csrc/flash_attn_fwd.cu``), picked by
-  dtype alone: bf16 runs on the tensor cores (``wgmma`` for Q'·Kᵀ and P·V, K/V
-  through a TMA ring of 128-key tiles, q' and p bf16 operands), f32 on the FMA
-  pipes (exact f32 products: training and the f32 parity runs).
+  dtype alone, all on the tensor cores (``wgmma`` for Q'·Kᵀ and P·V, K/V
+  through a TMA ring).  bf16: 128-key tiles, q' and p bf16 operands.  f32
+  (training and the f32 parity runs): every product is error-compensated
+  TF32 (3xTF32: x = hi + lo, hi·hi + hi·lo + lo·hi, ~21 bits; TF32 flags do
+  not govern it); a pre-pass writes K split and V split and transposed into
+  a workspace, a CTA owns 128 query rows and streams 32 keys a stage.
 - ``flash_attention_bwd_dq`` / ``flash_attention_bwd_dkv``: the
   FlashAttention-2 backward, p recomputed from lse.  lse is the same quantity
   under either forward, so one backward serves both.  Two kernels each too
   (``csrc/flash_attn_bwd.cu``), by dtype alone, both on the tensor cores.
   bf16: a CTA owns 128 q rows or keys, the other side's 64- or 32-row tiles
   come through a TMA ring, the bf16-rounded p and dz are the A fragments of
-  the gradient products.  f32: every product is error-compensated TF32
-  (3xTF32: x = hi + lo, hi·hi + hi·lo + lo·hi, ~21 bits; TF32 flags do not
-  govern it) on ``wgmma``; a pre-pass writes split and transposed copies of
-  the operands into a workspace, a CTA owns 64 rows and streams 32 a stage.
+  the gradient products.  f32: 3xTF32 on ``wgmma`` as in the forward; a
+  pre-pass writes split and transposed copies of the operands into a
+  workspace, a CTA owns 64 rows and streams 32 a stage.
 
 Each wrapper dispatches on where its inputs live: a CUDA tensor launches the
 hand-written kernel (``csrc/*.cu``, built with nvcc on first use and bound
@@ -52,25 +54,31 @@ HEAD_DIM = 64  # the kernels' compiled head width (every DA3 tier)
 # dk/dv, whose (lse, Δ) pairs lie in rows padded to multiples of 64 (kPairTile)
 BWD_TILE = 64
 BWD_TILE_DKV = 32
-# the f32 (3xTF32) backward kernels: 64 own rows a CTA (every workspace pads S
-# to a multiple of it) and 32 rows of the other side a stage, both kernels
+# the f32 (3xTF32) backward kernels: 64 own rows a CTA and 32 rows of the
+# other side a stage, both kernels
 BWD_F32_ROWS = 64
 BWD_F32_TILE = 32
+# the f32 (3xTF32) forwards: 128 query rows a CTA, 32 keys a stage
+FWD_F32_ROWS = 128
+FWD_F32_TILE = 32
+# every f32 workspace's split copies pad S to a multiple of this (kTf32Pad)
+TF32_PAD = 64
 # keys per online-softmax update of the stable forward: the bf16 kernel's key
 # tile (kTileK), where p is rounded against the running max.  The f32 kernel
-# steps by 16 keys, which only reorders f32 sums: p is not rounded there.
+# steps by FWD_F32_TILE keys, which only reorders f32 sums: p is not rounded
+# there.
 STABLE_BLOCK_K = 128
 
 _CSRC = Path(__file__).parent / "csrc"
-_HEADERS = ("flash_common.cuh", "flash_wgmma.cuh")
+_HEADERS = ("flash_common.cuh", "flash_wgmma.cuh", "flash_tf32.cuh")
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "da3slam_tpu_torch"
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # source -> {C entry point: argtypes}
 _SOURCES = {
     "flash_attn_fwd.cu": {
-        "flash_attn_bound_fwd": [_P] * 6 + [_I] * 5 + [_F, _P],
-        "flash_attn_stable_fwd": [_P] * 5 + [_I] * 5 + [_F, _P],
+        "flash_attn_bound_fwd": [_P] * 7 + [_I] * 5 + [_F, _P],
+        "flash_attn_stable_fwd": [_P] * 6 + [_I] * 5 + [_F, _P],
     },
     "flash_attn_bwd.cu": {
         "flash_attn_bwd_dq": [_P] * 8 + [_I] * 5 + [_F, _F, _P],
@@ -144,6 +152,8 @@ def flash_attention_stable_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain-torch stable forward on ``[B, S, H, D]``: ``(O, lse [B*H, S])``.
+    k and v may hold another number of keys than q rows (a check drops a key
+    tile).
 
     The online recurrence over blocks of ``STABLE_BLOCK_K`` keys, as the bf16
     CUDA kernel runs it: p is rounded to V's dtype against the running max m_b
@@ -153,12 +163,13 @@ def flash_attention_stable_reference(
     the same at any split up to where p is rounded.
     """
     B, S, H, D = q.shape
+    Sk = k.shape[1]
     acc = _acc_dtype(q.dtype)
     qs = _fold(q)
     kf = k.to(acc)
     vf = v.to(acc)
-    nb = -(-S // STABLE_BLOCK_K)
-    pad = nb * STABLE_BLOCK_K - S
+    nb = -(-Sk // STABLE_BLOCK_K)
+    pad = nb * STABLE_BLOCK_K - Sk
     o = torch.empty(B, S, H, D, dtype=acc, device=q.device)
     lse = torch.empty(B, H, S, dtype=acc, device=q.device)
     for b in range(B):
@@ -169,7 +180,7 @@ def flash_attention_stable_reference(
             m_run = torch.cummax(s.amax(-1), dim=1).values.clamp_min(-1e30)  # [S, nb]
             m = m_run[:, -1]
             p = torch.exp2(s - m_run[..., None]).to(v.dtype).to(acc)
-            p = (p * torch.exp2(m_run - m[:, None])[..., None]).view(S, -1)[:, :S]
+            p = (p * torch.exp2(m_run - m[:, None])[..., None]).view(S, -1)[:, :Sk]
             denom = p.sum(-1).clamp_min(1e-30)
             o[b, :, h] = (p @ vf[b, :, h]) / denom[:, None]
             lse[b, h] = m + torch.log2(denom)
@@ -365,6 +376,26 @@ def launch_kernel(name: str, q: torch.Tensor, *args) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
 
 
+def _split_copies(q: torch.Tensor, n: int) -> torch.Tensor:
+    """``n`` split copies (natural or transposed) of a ``[B, S, H, D]`` f32
+    tensor for the 3xTF32 kernels' pre-pass: ``B·H·S_pad·2·D`` floats each,
+    S_pad = S rounded up to ``TF32_PAD``."""
+    B, S, H, D = q.shape
+    s_pad = -(-S // TF32_PAD) * TF32_PAD
+    return torch.empty(n * B * H * s_pad * 2 * D, dtype=torch.float32, device=q.device)
+
+
+def forward_workspace(q: torch.Tensor) -> torch.Tensor | None:
+    """The f32 forwards' workspace on q's device: K split and V split and
+    transposed (two copies).  None in bf16.  The caller holds it until the
+    launch is queued: the allocator reuses it in stream order."""
+    return _split_copies(q, 2) if q.dtype == torch.float32 else None
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
 def flash_attention_bound(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -376,8 +407,9 @@ def flash_attention_bound(
     o = torch.empty_like(q)
     lse = torch.empty(B * H, S, dtype=torch.float32, device=q.device)
     kmax = torch.empty(B * H, dtype=torch.float32, device=q.device)
+    ws = forward_workspace(q)
     launch_kernel("flash_attn_bound_fwd", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  o.data_ptr(), lse.data_ptr(), kmax.data_ptr(), B, S, H, D,
+                  o.data_ptr(), lse.data_ptr(), kmax.data_ptr(), _ptr(ws), B, S, H, D,
                   DTYPE_CODES[q.dtype], _scale(D))
     flash_attention_bound.launches += 1
     return o, lse
@@ -393,8 +425,10 @@ def flash_attention_stable(
     B, S, H, D = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(B * H, S, dtype=torch.float32, device=q.device)
+    ws = forward_workspace(q)
     launch_kernel("flash_attn_stable_fwd", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  o.data_ptr(), lse.data_ptr(), B, S, H, D, DTYPE_CODES[q.dtype], _scale(D))
+                  o.data_ptr(), lse.data_ptr(), _ptr(ws), B, S, H, D, DTYPE_CODES[q.dtype],
+                  _scale(D))
     flash_attention_stable.launches += 1
     return o, lse
 
@@ -403,17 +437,12 @@ def backward_workspaces(q: torch.Tensor, dkv: bool) -> tuple[torch.Tensor, torch
     """``(ws, pairs)`` of a backward kernel on q's device.  bf16: ``ws`` takes
     the folded q' (``[B, S, H, D]``); f32: the pre-pass's split copies, five
     for dq (q', dO, K, V, Kᵀ) and six for dk/dv (K, V, q', dO, q'ᵀ, dOᵀ) of
-    ``B·H·S_pad·2·D`` floats each, S_pad = S rounded up to ``BWD_F32_ROWS``.
+    ``B·H·S_pad·2·D`` floats each (``_split_copies``).
     ``pairs`` (dk/dv only): the (lse, Δ) pairs in rows padded to whole
     ``BWD_TILE``s.  The caller holds both until the launch is queued: the
     allocator reuses them in stream order."""
-    B, S, H, D = q.shape
-    if q.dtype == torch.bfloat16:
-        ws = torch.empty_like(q)
-    else:
-        s_pad = -(-S // BWD_F32_ROWS) * BWD_F32_ROWS
-        ws = torch.empty((6 if dkv else 5) * B * H * s_pad * 2 * D, dtype=torch.float32,
-                         device=q.device)
+    B, S, H, _ = q.shape
+    ws = torch.empty_like(q) if q.dtype == torch.bfloat16 else _split_copies(q, 6 if dkv else 5)
     pairs = None
     if dkv:
         pairs = torch.empty(B * H, -(-S // BWD_TILE) * BWD_TILE, 2, dtype=torch.float32,

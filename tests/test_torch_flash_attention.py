@@ -26,9 +26,12 @@ from da3slam_tpu_torch.ops.flash_attention import (
     BWD_F32_TILE,
     BWD_TILE,
     BWD_TILE_DKV,
+    FWD_F32_ROWS,
+    FWD_F32_TILE,
     LN2,
     LOG2E,
     STABLE_BLOCK_K,
+    TF32_PAD,
     attention_delta,
     flash_attention,
     flash_attention_backward,
@@ -345,6 +348,19 @@ class TestDroppedTileBreaksTheSmokeBound:
         errs = chip_smoke.dropped_tile_errors(q, k, v, g, lse, delta, grads)
         for name, err, ref in zip("qkv", errs, grads):
             assert err > chip_smoke.grad_bound(ref), f"d{name}: {err}"
+
+    @pytest.mark.parametrize("stable", [False, True])
+    @pytest.mark.parametrize("shape", [(2, 300, 3, 64), (1, 1301, 2, 64)])
+    def test_bounds_catch_a_dropped_forward_tile(self, shape, stable):
+        """chip_smoke.py holds each f32 forward to fwd_bound and LSE_TOL; the
+        plain forward without the f32 kernel's last (ragged) 32-key tile must
+        break both."""
+        q, k, v = torch_inputs(torch.float32, *rand_qkv(39, *shape[:3]))
+        ref = flash_attention_stable_reference if stable else flash_attention_bound_reference
+        o, lse = ref(q, k, v)
+        cut = chip_smoke.dropped_key_tile_errors(q, k, v, o, lse)
+        assert cut["o"] > chip_smoke.fwd_bound(o) and cut["lse"] > chip_smoke.LSE_TOL, cut
+        assert chip_smoke.dropped_key_tile_errors(q[:, :32], k[:, :32], v[:, :32], o, lse) is None
 
 
 TILE_K = STABLE_BLOCK_K  # the bf16 kernel's key tile (kTileK in flash_attn_fwd.cu)
@@ -664,7 +680,8 @@ class TestTf32BackwardModel:
         """The TF32 A fragment takes a score column other than its inner index
         (2t where it reads t); the transposed copies' rows follow the same
         order, so each fragment value meets its own row.  The constants are
-        the ones flash_attn_bwd.cu compiles."""
+        the ones flash_attn_bwd.cu compiles (the pairing from flash_tf32.cuh,
+        which it shares with the f32 forwards)."""
         from da3slam_tpu_torch.ops import flash_attention as fa
 
         cols = fragment_columns()
@@ -672,9 +689,11 @@ class TestTf32BackwardModel:
         assert all(len(c) == 1 for c in cols.values()), "one column an inner index, every lane"
         assert tuple(cols[i].pop() for i in range(8)) == TF32_ROW_AT
         assert TF32_ROW_AT == tuple(2 * (p & 3) + (p >> 2) for p in range(8))
+        shared = (fa._CSRC / "flash_tf32.cuh").read_text()
+        assert "constexpr int kFragFromAcc[4] = {0, 2, 1, 3};" in shared
+        assert "int tf32_row_at(int p) { return 2 * (p & 3) + (p >> 2); }" in shared
         text = (fa._CSRC / "flash_attn_bwd.cu").read_text()
-        assert "constexpr int kFragFromAcc[4] = {0, 2, 1, 3};" in text
-        assert "int tf32_row_at(int p) { return 2 * (p & 3) + (p >> 2); }" in text
+        assert '#include "flash_tf32.cuh"' in text
         assert f"constexpr int kF32N = {BWD_F32_TILE};" in text
         assert f"constexpr int kF32Rows = {BWD_F32_ROWS};" in text
 
@@ -720,6 +739,139 @@ class TestTf32BackwardModel:
         refs = flash_attention_backward_reference(q, k, v, o, lse, g)
         for name, a, r in zip("qkv", tf32_bwd_tile_model(q, k, v, g, lse, delta, terms=1), refs):
             assert (a - r).abs().max().item() > 4 * chip_smoke.grad_bound(r), f"d{name}"
+
+
+# P·V tiles the f32 forward kernel sums on the tensor cores before each block
+# is promoted into f32 sums (kPromoteTiles in flash_attn_fwd.cu)
+FWD_PROMOTE_TILES = 8
+
+
+def tf32_fwd_tile_model(q, k, v, stable, terms=3, mask=True, promote=True):
+    """The f32 forward kernel's numerics and tile schedule in plain torch, one
+    (batch, head) at a time: q' = q·log2(e)/√D in f32; the keys in tiles of
+    FWD_F32_TILE, the rows past S zero-filled (the pre-pass's padding) and
+    multiplied like any other; s = q'·kᵀ as mm_tf32 over each half of the
+    head dim, the two halves added in f32; in the last tile the scores of
+    columns >= S - k0 forced to -inf (``mask``); bound: m = |q'|·max|k|;
+    stable: the running max per tile, with l, O and the promoted sum brought
+    along as the kernel does; p = exp2(s - m) in f32, l += Σp; O += p·v as
+    mm_tf32 with the keys in the kernel's order (the A columns as the
+    fragments hand them over, the V rows as the pre-pass permutes its
+    transposed copy); P·V summed FWD_PROMOTE_TILES tiles at a time and each
+    block added into an f32 sum (``promote``).  ``terms=1``: one TF32 product.
+    Returns (O, lse [B*H, S])."""
+    B, S, H, D = q.shape
+    T = FWD_F32_TILE
+    n = -(-S // T)
+    pad = n * T - S
+    into_slot = {i: c.pop() for i, c in fragment_columns().items()}
+    a_cols = [8 * (c // 8) + into_slot[c % 8] for c in range(T)]
+    b_rows = [8 * (c // 8) + TF32_ROW_AT[c % 8] for c in range(T)]
+    qs = q.float() * (LOG2E / D ** 0.5)
+    kp, vp = (torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, pad)) for x in (k, v))
+    o = torch.empty(B, S, H, D)
+    lse = torch.empty(B, H, S)
+    half = D // 2
+    for b in range(B):
+        for h in range(H):
+            qh = qs[b, :, h]
+            if stable:
+                m = torch.full((S,), -1e30)
+            else:
+                m = qh.norm(dim=-1) * k[b, :, h].float().norm(dim=-1).max()
+            m_sum = m.clone()
+            l, acc, total = torch.zeros(S), torch.zeros(S, D), torch.zeros(S, D)
+            for t in range(n):
+                kt, vt = kp[b, t * T:(t + 1) * T, h], vp[b, t * T:(t + 1) * T, h]
+                sc = (mm_tf32(qh[:, :half], kt[:, :half].T, terms)
+                      + mm_tf32(qh[:, half:], kt[:, half:].T, terms))
+                if mask:
+                    sc[:, S - t * T:] = -torch.inf
+                if stable:
+                    m_new = torch.maximum(m, sc.amax(-1))
+                    alpha = torch.exp2(m - m_new)
+                    m, l, acc = m_new, l * alpha, acc * alpha[:, None]
+                if promote and t > 0 and t % FWD_PROMOTE_TILES == 0:
+                    total = total * torch.exp2(m_sum - m)[:, None] + acc
+                    m_sum, acc = m, torch.zeros(S, D)
+                p = torch.exp2(sc - m[:, None])
+                l = l + p.sum(-1)
+                acc = acc + mm_tf32(p[:, a_cols], vt[b_rows], terms)
+            lc = l.clamp_min(1e-30)
+            o[b, :, h] = (total * torch.exp2(m_sum - m)[:, None] + acc) / lc[:, None]
+            lse[b, h] = m + torch.log2(lc)
+    return o, lse.reshape(B * H, S)
+
+
+class TestTf32ForwardModel:
+    """The f32 forward kernel's 3xTF32 numerics and tile schedule, modelled on
+    the CPU, are the plain forwards' function within chip_smoke's bounds; one
+    TF32 product is not, nor is the model without the mask of the padded keys."""
+
+    @pytest.mark.parametrize("stable", [False, True])
+    @pytest.mark.parametrize("S", [1, 31, 32, 33, 63, 64, 65, 127, 128, 129, 300])
+    def test_model_matches_plain(self, S, stable):
+        """Measured ~1e-6 (3xTF32 keeps ~21 bits of a product); held to
+        chip_smoke.fwd_bound (F32_TOL, 5e-5) and LSE_TOL."""
+        q, k, v = torch_inputs(torch.float32, *rand_qkv(300 + S, 2, S, 2))
+        ref = flash_attention_stable_reference if stable else flash_attention_bound_reference
+        o_ref, lse_ref = ref(q, k, v)
+        o, lse = tf32_fwd_tile_model(q, k, v, stable)
+        assert (o - o_ref).abs().max().item() <= chip_smoke.fwd_bound(o_ref)
+        assert (lse - lse_ref).abs().max().item() <= chip_smoke.LSE_TOL
+
+    def test_model_holds_the_30x_input(self):
+        """The stable mode's 30x input (logits 100-200, an f32 ulp 1.5e-5):
+        the model within LSE_TOL_30X and F32_REL_TOL_30X of the plain version."""
+        q, k, v = torch_inputs(torch.float32, *rand_qkv(23, 1, 300, 2, scale=30.0))
+        o_ref, lse_ref = flash_attention_stable_reference(q, k, v)
+        o, lse = tf32_fwd_tile_model(q, k, v, stable=True)
+        assert (o - o_ref).abs().max().item() <= chip_smoke.fwd_bound(o_ref, q_scale=30.0)
+        assert (lse - lse_ref).abs().max().item() <= chip_smoke.LSE_TOL_30X
+
+    @pytest.mark.parametrize("stable", [False, True])
+    def test_one_tf32_product_breaks_the_bound(self, stable):
+        """hi·hi alone keeps ~11 bits of each product: O moves past F32_TOL
+        several times over, so the bound tells the designs apart."""
+        q, k, v = torch_inputs(torch.float32, *rand_qkv(310, 2, 300, 2))
+        ref = flash_attention_stable_reference if stable else flash_attention_bound_reference
+        o_ref, _ = ref(q, k, v)
+        o, _ = tf32_fwd_tile_model(q, k, v, stable, terms=1)
+        assert (o - o_ref).abs().max().item() > 4 * chip_smoke.fwd_bound(o_ref)
+
+    @pytest.mark.parametrize("stable", [False, True])
+    def test_unmasked_padding_breaks_the_bounds(self, stable):
+        """At S = 33 the last tile holds one key and 31 zero rows: left in,
+        they move lse past LSE_TOL and O past fwd_bound."""
+        q, k, v = torch_inputs(torch.float32, *rand_qkv(311, 2, 33, 2))
+        ref = flash_attention_stable_reference if stable else flash_attention_bound_reference
+        o_ref, lse_ref = ref(q, k, v)
+        o, lse = tf32_fwd_tile_model(q, k, v, stable, mask=False)
+        assert (lse - lse_ref).abs().max().item() > chip_smoke.LSE_TOL
+        assert (o - o_ref).abs().max().item() > chip_smoke.fwd_bound(o_ref)
+
+    def test_source_constants(self):
+        """The constants the model assumes are the ones flash_attn_fwd.cu
+        compiles: the key tile, 64 rows a warpgroup and two warpgroups a CTA,
+        the promotion block, three TF32 products, the split copies' padding,
+        the head dim's halves in their own score accumulators, and P's
+        fragments from the shared pairing (flash_tf32.cuh)."""
+        from da3slam_tpu_torch.ops import flash_attention as fa
+
+        text = (fa._CSRC / "flash_attn_fwd.cu").read_text()
+        shared = (fa._CSRC / "flash_tf32.cuh").read_text()
+        assert '#include "flash_tf32.cuh"' in text
+        assert f"constexpr int kF32N = {FWD_F32_TILE};" in text
+        assert "constexpr int kWgRows = 64;" in text
+        assert f"constexpr int kF32Consumers = {FWD_F32_ROWS // 64};" in text
+        assert "constexpr int kF32Rows = kWgRows * kF32Consumers;" in text
+        assert f"constexpr int kPromoteTiles = {FWD_PROMOTE_TILES};" in text
+        assert "constexpr int kTf32Terms = 3;" in text
+        assert f"constexpr int kTf32Pad = {TF32_PAD};" in shared
+        assert "split_fragments(p, p_hi, p_lo);" in text
+        for acc, steps in (("s0", "i = 0; i < 4"), ("s1", "i = 4; i < 8")):
+            assert f"for (int {steps}; ++i) {{\n      wgmma_m64n32k8_tf32_ss({acc}," in text
+        assert "flash_fwd_f32_kernel" not in text, "the FMA forward is gone"
 
 
 @pytest.fixture
@@ -966,6 +1118,56 @@ class TestKernelOnCard:
             assert err > chip_smoke.grad_bound(a), f"d{name}: {err}"
 
     @pytest.mark.parametrize("stable", [False, True])
+    @pytest.mark.parametrize("H", [1, 16])
+    @pytest.mark.parametrize("B", [1, 3])
+    @pytest.mark.parametrize("S", [1, 31, 32, 33, 63, 64, 65, 127, 128, 129, 1301])
+    def test_f32_tile_edges_match_plain(self, card, S, B, H, stable):
+        """The 3xTF32 forwards around the 32-key tile, the 64-row warpgroup
+        and the 128-row CTA, O and lse, at the smoke's bounds."""
+        fwd, ref = ((flash_attention_stable, flash_attention_stable_reference) if stable
+                    else (flash_attention_bound, flash_attention_bound_reference))
+        q, k, v = torch_inputs(torch.float32, *rand_qkv(370 + S, B, S, H), device=card)
+        before = fwd.launches
+        o, lse = fwd(q, k, v)
+        torch.cuda.synchronize()
+        assert fwd.launches == before + 1
+        o_ref, lse_ref = ref(q, k, v)
+        assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+        assert (o - o_ref).abs().max().item() <= chip_smoke.fwd_bound(o_ref)
+        assert (lse - lse_ref).abs().max().item() <= chip_smoke.LSE_TOL
+
+    @pytest.mark.parametrize("stable", [False, True])
+    @pytest.mark.parametrize("shape", [(4, 1301, 6, 64), (1, 5204, 6, 64)])
+    def test_f32_train_shapes_match_plain(self, card, shape, stable):
+        """The f32 training step's intra- and cross-view calls."""
+        fwd, ref = ((flash_attention_stable, flash_attention_stable_reference) if stable
+                    else (flash_attention_bound, flash_attention_bound_reference))
+        q, k, v = torch_inputs(torch.float32, *rand_qkv(380, *shape[:3]), device=card)
+        o, lse = fwd(q, k, v)
+        o_ref, lse_ref = ref(q, k, v)
+        assert (o - o_ref).abs().max().item() <= chip_smoke.fwd_bound(o_ref)
+        assert (lse - lse_ref).abs().max().item() <= chip_smoke.LSE_TOL
+
+    def test_f32_stable_30x_at_the_smoke_shape(self, card):
+        """chip_smoke.STABLE_CASES's 30x input: logits 100-200 summed by the
+        tensor cores, held to LSE_TOL_30X and F32_REL_TOL_30X."""
+        q, k, v = torch_inputs(torch.float32, *rand_qkv(381, 1, 1301, 6, scale=30.0), device=card)
+        o, lse = flash_attention_stable(q, k, v)
+        o_ref, lse_ref = flash_attention_stable_reference(q, k, v)
+        assert (o - o_ref).abs().max().item() <= chip_smoke.fwd_bound(o_ref, q_scale=30.0)
+        assert (lse - lse_ref).abs().max().item() <= chip_smoke.LSE_TOL_30X
+
+    @pytest.mark.parametrize("stable", [False, True])
+    def test_f32_bounds_catch_a_dropped_last_tile(self, card, stable):
+        """At a ragged S the f32 kernel is further from the plain forward
+        that lost its last 32-key tile (21 keys of 1301) than the bounds allow."""
+        fwd = flash_attention_stable if stable else flash_attention_bound
+        q, k, v = torch_inputs(torch.float32, *rand_qkv(382, 1, 1301, 2), device=card)
+        o, lse = fwd(q, k, v)
+        cut = chip_smoke.dropped_key_tile_errors(q, k, v, o, lse)
+        assert cut["o"] > chip_smoke.fwd_bound(o) and cut["lse"] > chip_smoke.LSE_TOL, cut
+
+    @pytest.mark.parametrize("stable", [False, True])
     def test_bounds_catch_a_dropped_last_tile(self, card, stable):
         """At a ragged S the kernel is further from the plain version that
         lost its last key tile (21 keys of 1301) than the bounds allow: a
@@ -996,6 +1198,19 @@ class TestStageTool:
         # the last stage is the kernel as the library builds it: the macros' defaults
         for macro, value in zip(("STAGES", "CONSUMERS", "OVERLAP"), tool.STAGES["+overlap"]):
             assert f"#define FLASH_FWD_{macro} {value} " in text
+
+    def test_f32_variants_cut_lines_that_exist_once(self):
+        """The f32 variants' replacements apply to the forward's source as it
+        stands, each once, and change it (but the as-built one)."""
+        from da3slam_tpu_torch.ops import flash_attention as fa
+        from da3slam_tpu_torch.tools import flash_fwd_stages as tool
+
+        text = (fa._CSRC / tool.SOURCE).read_text()
+        for name, (cuts, _) in tool.F32_VARIANTS.items():
+            for old, _ in cuts:
+                assert text.count(old) == 1, (name, old)
+            assert (tool.cut_source(cuts) == text) == (name == "f32_as_built"), name
+        assert tool.F32_TOL == chip_smoke.F32_TOL and tool.LSE_TOL == chip_smoke.LSE_TOL
 
     def test_refuses_to_run_without_a_card(self):
         from da3slam_tpu_torch.tools import flash_fwd_stages as tool
