@@ -8,9 +8,11 @@ final line:
 1. env: the card (nvidia-smi name and power limit), torch and CUDA versions
 2. build: nvcc build of every kernel (flash attention, the flash probes, the
    3x3 conv, the int8 probe), with ptxas's registers, shared memory and spills
-   per kernel; a register spill or a serialized wgmma in the forward's or the
-   backward's source fails the phase, and so does an f32 forward or backward
-   kernel without TF32 HGMMA instructions in ``cuobjdump -sass``
+   per kernel; a register spill or a serialized wgmma (C7510-C7515) in the
+   forwards', the backward's, the probes' or the conv's source fails the
+   phase, and so does an f32 forward or backward kernel without TF32 HGMMA
+   instructions in ``cuobjdump -sass``, or a probe or bf16 conv kernel
+   without bf16 ones
 3. kernel vs plain, bound and stable forwards: each kernel against its plain
    torch version, both on the card, at the SMALL tier's shapes, for the bound
    forward the LARGE tier's, at lengths around the bf16 kernel's 64-row
@@ -41,11 +43,17 @@ final line:
    (SMALL, chunk 15, overlap 1: two steady chunks and the re-anchored tail),
    counting the launches; then the same solver split into load, loop and
    final fetch (host waits and times apart)
-10. conv3x3 vs plain: the 3x3 conv kernel against its plain version and beside
-    ``F.conv2d`` at the DPT head's three shapes (bf16) and a ragged f32 shape;
-    a dropped halo row or column must break the bound
-11. flash probes vs plain: the constant-shift, bisect and online-softmax lab
-    kernels against their plain versions at the tools' shapes and a ragged one
+10. conv3x3 vs plain: the 3x3 conv kernels against their plain version and
+    beside ``F.conv2d`` (TF32 off in f32) at the DPT head's three shapes in
+    bf16 (the wgmma kernel) and the first in f32 (the direct kernel), shapes
+    ragged around both kernels' tiles, and a bf16 shape the shape rule sends
+    to the direct kernel (its own count shows which ran); a dropped halo row
+    or column must break the bound
+11. flash probes vs plain: the constant-shift, bisect (A-E) and online-softmax
+    lab (old, new, qs) kernels against their plain versions at the tools'
+    shapes, a ragged one and lengths around the kernel's 128-row and 128-key
+    tiles; there the plain version without the last key tile must break each
+    mode's bound
 12. int8 flash vs plain: the int8 probe kernel against its plain version at
     the tool's shape, the tool's check shape (a ragged last block) and a small
     ragged case; the plain version with a key tile or its last block dropped
@@ -194,26 +202,52 @@ F32_REL_TOL_30X = 1e-4
 # each bound catches it at each shape.
 BWD_F32_REL_TOL = 1e-4
 # The 3x3 conv: (label, dtype, N, H, W, C, COUT, relu).  The three DPT-head
-# shapes of the probe tool in bf16, and an f32 shape ragged in H, W (the 16 x
-# 32 pixel tile), C (chunks of 8) and COUT (strips of 32).  Kernel and plain
-# version take the same exact products of T-rounded values and differ in the
-# order of up to 9*C f32 sums; bf16 outputs are then rounded (one ulp = 2^-8
-# relative), so bf16 is held to 2^-6 * max |out| as the attention output is,
-# and f32 to the JAX package's own 1e-4.  A kernel that dropped a tile's halo
-# row or column would lose three taps x C terms there (~1 in magnitude):
-# the phase checks that each bound catches it.
+# shapes of the probe tool in bf16 (the wgmma kernel) and the first of them in
+# f32 (the direct kernel); shapes ragged in H and W around both kernels' pixel
+# tiles (16 x 32 for strips of 32 channels, 16 x 16 for strips of 128), in
+# COUT (strips) and, in f32, in C (the direct kernel's chunks of 8); and one
+# bf16 shape with C % 8 != 0, which the shape rule sends to the direct kernel.
+# Kernel and plain version take the same exact products of T-rounded values
+# and differ in the order of up to 9*C f32 sums; bf16 outputs are then rounded
+# (one ulp = 2^-8 relative), so bf16 is held to 2^-6 * max |out| as the
+# attention output is, and f32 to the JAX package's own 1e-4.  A kernel that
+# dropped a tile's halo row or column would lose three taps x C terms there
+# (~1 in magnitude): the phase checks that each bound catches it.
 CONV_CASES = [
     ("head2-small", torch.bfloat16, 16, 504, 504, 64, 32, False),
     ("head2-large", torch.bfloat16, 16, 504, 504, 128, 32, True),
     ("head1-large", torch.bfloat16, 16, 288, 288, 256, 128, False),
+    ("head2-small_f32", torch.float32, 16, 504, 504, 64, 32, False),
     ("ragged_f32", torch.float32, 3, 45, 77, 21, 40, True),
+    ("ragged_bf16", torch.bfloat16, 3, 45, 77, 24, 40, True),
+    ("ragged_bf16_n128", torch.bfloat16, 2, 37, 41, 8, 130, False),
+    ("direct_bf16", torch.bfloat16, 2, 37, 45, 21, 40, True),
 ]
 CONV_F32_TOL = 1e-4
 # The flash probes at the tools' shapes: S = 16 * 1301 = 20816 padded to the
 # TPU tool's blocks (21504 queries and keys), the lab at S = 20480 (its padded
-# length), BH = 6, bf16; and a ragged small case (Sq, Sk, seq_k).
+# length), BH = 6, bf16; a ragged small case (Sq, Sk, seq_k); and lengths
+# around the kernel's tiles (128 query rows a CTA, 128 keys a stage), Sq and
+# Sk apart, seq_k in the first tile and in the last.  At those lengths, where
+# the last key tile holds at least PROBE_DROP_MIN keys below seq_k, the plain
+# version without that tile must break the bound of O or lse
+# (dropped_probe_tile_errors): every mode is checked so at one shape or more.
 PROBE_S, PROBE_PAD, LAB_S = 20816, 21504, 20480
 PROBE_RAGGED = (300, 333, 290)
+PROBE_EDGES = [(127, 127, 127), (128, 128, 100), (129, 129, 129), (255, 255, 255),
+               (257, 257, 257), (257, 257, 100), (129, 257, 200), (257, 129, 129),
+               (200, 255, 250)]
+PROBE_DROP_MIN = 64
+# lse of the bisect probes at the tile-edge lengths: LSE_TOL plus one rounding
+# tip of the row's largest p.  p is rounded to bf16 at the same point in the
+# kernel and the plain version, but a p within the last f32 bits of a rounding
+# boundary rounds either way (the two differ there in exp2 and in the order
+# of the score's sums) and moves l by up to 2^-7 of that p: lse by up to
+# 2^-7/ln 2 of p_max/l.  At 127-129 keys the tools' inputs put up to 30% of a
+# row's mass on one key: the plain version in f32 is then 1.4e-3 from the same
+# formula in f64.  At the tools' shapes and the ragged one the share is small
+# and the bound is LSE_TOL alone.
+LSE_TIP = 2.0 ** -7 / 0.6931471805599453
 # The int8 flash probe: (label, dtype, shape [B, S, H, D], block_k): the tool's
 # shape, the tool's check shape (1500 keys in blocks of 512: a ragged last
 # block of 476) and a small ragged case.  Kernel and plain version quantize
@@ -452,6 +486,7 @@ def counted(path_launches: dict, path: str):
     after into ``path_launches[path]``."""
     for fn in counters().values():
         fn.launches = 0
+    counters()["conv3x3"].direct_launches = 0
     yield
     path_launches[path] = {name: fn.launches for name, fn in counters().items()}
 
@@ -500,6 +535,10 @@ def tensor_core_instructions(library: Path) -> dict:
     return kernels
 
 
+# the sources of the tensor-core kernels: no spill, no serialized wgmma
+WGMMA_SOURCES = ("flash_attn_fwd.cu", "flash_attn_bwd.cu", "flash_probe_fwd.cu", "conv3x3.cu")
+
+
 def phase_build() -> None:
     from da3slam_tpu_torch.ops import flash_attention as fa
 
@@ -507,29 +546,34 @@ def phase_build() -> None:
     ptxas = {src: [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
                    if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
              for src, log in fa._Kernel.build_logs.items()}
-    hgmma = {src: tensor_core_instructions(fa._Kernel.paths[src])
-             for src in ("flash_attn_fwd.cu", "flash_attn_bwd.cu")}
+    hgmma = {src: tensor_core_instructions(fa._Kernel.paths[src]) for src in WGMMA_SOURCES}
     emit("build", seconds=fa._Kernel.build_seconds,
          libraries=[str(p.relative_to(ROOT)) for p in fa._Kernel.paths.values()], ptxas=ptxas,
          hgmma=hgmma)
     # the f32 kernels run on the tensor cores: TF32 wgmma in the SASS of each
-    # (both instantiations of the forward: bound and stable)
-    for src, kernel, n in (("flash_attn_fwd.cu", "flash_fwd_tf32_kernel", 2),
-                           ("flash_attn_bwd.cu", "flash_bwd_dq_tf32_kernel", 1),
-                           ("flash_attn_bwd.cu", "flash_bwd_dkv_tf32_kernel", 1)):
+    # (both instantiations of the forward: bound and stable); the probe
+    # template's eight instantiations and the bf16 conv's two (strips of 32
+    # and 128 channels) bf16 wgmma
+    for src, kernel, n, kind in (("flash_attn_fwd.cu", "flash_fwd_tf32_kernel", 2, ".TF32"),
+                                 ("flash_attn_bwd.cu", "flash_bwd_dq_tf32_kernel", 1, ".TF32"),
+                                 ("flash_attn_bwd.cu", "flash_bwd_dkv_tf32_kernel", 1, ".TF32"),
+                                 ("flash_probe_fwd.cu", "flash_probe_kernel", 8, ".BF16"),
+                                 ("conv3x3.cu", "conv3x3_wgmma_kernel", 2, ".BF16")):
         found = [kinds for name, kinds in hgmma[src].items() if kernel in name]
-        if len(found) != n or not all(any(".TF32" in kind for kind in kinds) for kinds in found):
-            fail(f"{kernel}: not {n} instantiations with TF32 HGMMA instructions in its SASS "
+        if len(found) != n or not all(any(kind in k for k in kinds) for kinds in found):
+            fail(f"{kernel}: not {n} instantiations with {kind} HGMMA instructions in its SASS "
                  f"({found})")
     # the tensor-core kernels' accumulators must stay in registers and their
     # wgmmas asynchronous (a log exists when this process built the library,
     # as it does in a fresh checkout)
-    for src in ("flash_attn_fwd.cu", "flash_attn_bwd.cu"):
+    for src in WGMMA_SOURCES:
         log = fa._Kernel.build_logs.get(src, "")
         spills = [ln.strip() for ln in log.splitlines()
                   if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
-        if spills or "wgmma.mma_async instructions are serialized" in log:
-            fail(f"{src}: register spills {spills} or serialized wgmma (ptxas C7513/C7515)")
+        serialized = [ln.strip() for ln in log.splitlines() if re.search(r"C751[0-5]", ln)]
+        if spills or serialized or "wgmma.mma_async instructions are serialized" in log:
+            fail(f"{src}: register spills {spills} or serialized wgmma {serialized} "
+                 "(ptxas C7510-C7515)")
 
 
 def dropped_key_tile_errors(q, k, v, o, lse) -> dict | None:
@@ -1073,7 +1117,7 @@ def probe_roofline(Sq: int, Sk: int, n_rows: int) -> dict:
 
 
 def phase_conv3x3() -> dict:
-    from da3slam_tpu_torch.ops.conv3x3 import conv3x3_fused, conv3x3_reference
+    from da3slam_tpu_torch.ops.conv3x3 import conv3x3_fused, conv3x3_reference, uses_wgmma
     from da3slam_tpu_torch.tools.probe_conv3x3 import conv_inputs, library_conv
 
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -1082,32 +1126,44 @@ def phase_conv3x3() -> dict:
         # the tool's inputs from another seed, and a bias that is not zero
         x, k = conv_inputs(N, H, W, C, COUT, "cuda", dtype, seed=3)
         b = torch.randn(COUT, generator=gen, device="cuda")
+        direct_before = conv3x3_fused.direct_launches
         out = conv3x3_fused(k, b, x, relu=relu)
+        ran_direct = conv3x3_fused.direct_launches > direct_before
         ref = conv3x3_reference(k, b, x, relu=relu)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         tol = conv_bound(ref)
         halo = dropped_halo_errors(k, b, x, ref, relu)
         lib = library_conv(k, b, x)
-        # F.conv2d rounds its bf16 bias add and, in f32, runs cuDNN in TF32 by
-        # torch's default: a yardstick of speed, not held to the bound
-        lib_out = lib().permute(0, 2, 3, 1)
+        # F.conv2d rounds its bf16 bias add: a yardstick of speed, not held to
+        # the bound; in f32 with TF32 off (torch's default runs cuDNN in TF32),
+        # so that it computes the f32 function
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            lib_out = lib().permute(0, 2, 3, 1)
+            library_ms = cuda_ms(lib, reps=5)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
         if relu:
             lib_out = lib_out.relu()
         lib_diff = (lib_out.float() - ref.float()).abs().max().item()
         elem = x.element_size()
         row = {"case": label, "dtype": str(dtype).replace("torch.", ""),
-               "shape": [N, H, W, C, COUT], "relu": relu, "max_abs_err": err, "tol": tol,
+               "shape": [N, H, W, C, COUT], "relu": relu,
+               "kernel": "direct" if ran_direct else "wgmma", "max_abs_err": err, "tol": tol,
                "plain_max_abs": ref.float().abs().max().item(), "dropped_halo_err": halo,
                "ms": cuda_ms(lambda: conv3x3_fused(k, b, x, relu=relu), reps=5),
                "plain_ms": cuda_ms(lambda: conv3x3_reference(k, b, x, relu=relu), reps=3),
-               "library_ms": cuda_ms(lib, reps=5),
-               "library": "F.conv2d (channels-last, same dtype)",
+               "library_ms": library_ms,
+               "library": "F.conv2d (channels-last, same dtype, TF32 off)",
                "library_max_abs_diff": lib_diff,
                **roofline(2 * 9 * C * COUT * H * W * N,
                           N * H * W * (C + COUT) * elem + 9 * C * COUT * 4 + COUT * 4, dtype)}
         row["kernel_tflops"] = row["flop"] / row["ms"] / 1e9
         emit("conv3x3_vs_plain", **row)
+        if ran_direct == uses_wgmma(x, COUT):
+            fail(f"conv3x3 at {label} ran the {row['kernel']} kernel against its shape rule")
         if not bool(torch.isfinite(out).all().item()) or not err <= tol:
             fail(f"conv3x3 disagrees with its plain version at {label}: {err} > {tol}")
         for edge, cut in halo.items():
@@ -1120,74 +1176,144 @@ def phase_conv3x3() -> dict:
     return {"conv3x3": rows}
 
 
+def probe_m(Sq: int, seed: int = 4) -> torch.Tensor:
+    """The bisect's per-row shift m in [15, 16), f32 [6, Sq], from numpy (the
+    same values on any device)."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(15.0 + rng.random((6, Sq), dtype=np.float32))
+
+
+def dropped_probe_tile_errors(kernel, variant, q, k, v, m, seq_k, o, lse) -> dict | None:
+    """Max |Δ| of O (and lse) against the plain probe over all keys but the
+    kernel's last 128-key tile: what a kernel that skipped or mis-masked that
+    tile would show.  None where that tile is the only one or holds fewer
+    than PROBE_DROP_MIN keys below seq_k (padding alone: for the masking
+    modes it changes nothing)."""
+    from da3slam_tpu_torch.ops import flash_probes as fp
+
+    cut = (k.shape[1] - 1) // fp.KEY_TILE * fp.KEY_TILE
+    if cut == 0 or seq_k - cut < PROBE_DROP_MIN:
+        return None
+    kc, vc = k[:, :cut].contiguous(), v[:, :cut].contiguous()
+    if kernel == "flash_probe_nomax":
+        o_cut, lse_cut = fp.flash_nomax_reference(q, kc, vc), None
+    elif kernel == "flash_probe_bisect":
+        o_cut, lse_cut = fp.flash_bisect_reference(q, kc, vc, variant, m, seq_k=cut)
+    else:
+        o_cut, lse_cut = fp.flash_lab_reference(q, kc, vc, variant, seq_k=cut), None
+    out = {"o": (o.float() - o_cut.float()).abs().max().item()}
+    if lse is not None:
+        out["lse"] = (lse - lse_cut).abs().max().item()
+    return out
+
+
+def probe_lse_bound(q, k, lse_ref) -> torch.Tensor:
+    """Per-row bound on the bisect's lse at the tile-edge lengths (LSE_TIP):
+    LSE_TOL + LSE_TIP·p_max/l, where p_max/l = exp2(max_j s_ij − lse_i) (m
+    cancels; the max over every key, padding included, errs on the large
+    side)."""
+    s_max = torch.stack([(q[b].float() @ k[b].float().T).amax(-1) for b in range(q.shape[0])])
+    return LSE_TOL + LSE_TIP * torch.exp2(s_max - lse_ref)
+
+
+def probe_jobs(q, k, v, m, seq_k):
+    """(kernel, variant, kernel call, plain call, rows of f32 in/out, library
+    call) for the constant-shift and bisect probes on one input.  O =
+    softmax(ln2·q·kᵀ)·v for any shift, so SDPA with scale ln 2 is the
+    library's call for O: over every key where the padding is counted (nomax,
+    A, B), over the first seq_k where it is masked or subtracted (the padded v
+    rows are zeros).  As for the production forwards, the lse output has no
+    library call of its own."""
+    from da3slam_tpu_torch.ops import flash_probes as fp
+
+    Sk = k.shape[1]
+
+    def sdpa_call(n):
+        return lambda: torch.nn.functional.scaled_dot_product_attention(
+            q[None], k[None, :, :n], v[None, :, :n], scale=0.6931471805599453)[0]
+
+    jobs = [("flash_probe_nomax", "nomax", lambda: (fp.flash_nomax(q, k, v), None),
+             lambda: (fp.flash_nomax_reference(q, k, v), None), 0, sdpa_call(Sk))]
+    for var in sorted(fp.BISECT_VARIANTS):
+        counted = fp.BISECT_VARIANTS[var][1] == "none"
+        jobs.append(("flash_probe_bisect", var,
+                     lambda var=var: fp.flash_bisect(q, k, v, var, m, seq_k=seq_k),
+                     lambda var=var: fp.flash_bisect_reference(q, k, v, var, m, seq_k=seq_k),
+                     1 if var == "A" else 2, sdpa_call(Sk if counted else seq_k)))
+    return jobs
+
+
 def phase_flash_probes() -> dict:
-    """Each probe kernel against its plain version: O to 2^-6·max|O| (bf16: the
-    two round p at the same points and differ by the output's rounding), lse
-    to 1e-3 (a dropped or double-counted key tile moves it by more)."""
+    """Each probe kernel in every mode against its plain version: O to
+    2^-6·max|O| (bf16: the two round p at the same points and differ by the
+    output's rounding), lse to 1e-3 (a dropped or double-counted key tile moves
+    it by more), at the tools' shapes, a ragged one and the tile edges; the
+    plain version without the last key tile breaks the bound of each mode."""
     from da3slam_tpu_torch.ops import flash_probes as fp
     from da3slam_tpu_torch.tools.flash_lab import lab_inputs
     from da3slam_tpu_torch.tools.flash_nomax_probe import probe_inputs
 
-    gen = torch.Generator(device="cuda").manual_seed(4)
-    ln2 = 0.6931471805599453
-
-    def sdpa_call(q, k, v, n, scale=None):
-        """One SDPA call over the first ``n`` keys of folded [BH, S, D] inputs."""
-        return lambda: torch.nn.functional.scaled_dot_product_attention(
-            q[None], k[None, :, :n], v[None, :, :n], scale=scale)[0]
-
     rows = {"flash_probe_nomax": [], "flash_probe_bisect": [], "flash_probe_lab": []}
-    for case, (Sq, Sk, seq_k) in (("tool", (PROBE_PAD, PROBE_PAD, PROBE_S)),
-                                  ("ragged", PROBE_RAGGED)):
+    checked = set()
+    cases = [("tool", (PROBE_PAD, PROBE_PAD, PROBE_S)), ("ragged", PROBE_RAGGED)] + [
+        (f"edge{Sq}x{Sk}s{seq_k}", (Sq, Sk, seq_k)) for Sq, Sk, seq_k in PROBE_EDGES]
+    for case, (Sq, Sk, seq_k) in cases:
         # the tools' inputs (padded k, v rows zeros) and a per-row shift m in [15, 16)
         q, k, v = probe_inputs(Sq, Sk, "cuda", seed=4, seq_k=seq_k)
-        m = 15.0 + torch.rand(6, Sq, generator=gen, device="cuda")
-        # (kernel, variant, kernel call, plain call, rows of f32 in/out, library call)
-        # O = softmax(ln2·q·kᵀ)·v for any shift, so SDPA with scale ln2 is the
-        # library's call for O: over every key where the padding is counted
-        # (nomax, A), over the first seq_k where it is masked or subtracted
-        # (the padded v rows are zeros).  As for the production forwards, the
-        # lse output has no library call of its own.
-        jobs = [("flash_probe_nomax", "nomax", lambda: (fp.flash_nomax(q, k, v), None),
-                 lambda: (fp.flash_nomax_reference(q, k, v), None), 0,
-                 sdpa_call(q, k, v, Sk, ln2))]
-        for var in "ACE":
-            jobs.append(("flash_probe_bisect", var,
-                         lambda var=var: fp.flash_bisect(q, k, v, var, m, seq_k=seq_k),
-                         lambda var=var: fp.flash_bisect_reference(q, k, v, var, m, seq_k=seq_k),
-                         1 if var == "A" else 2,
-                         sdpa_call(q, k, v, Sk if var == "A" else seq_k, ln2)))
-        for kernel, var, run, plain, n_rows, library in jobs:
-            rows[kernel].append(_probe_case(kernel, case, var, run, plain, library,
-                                            probe_roofline(Sq, Sk, n_rows), (Sq, Sk, seq_k)))
+        m = probe_m(Sq).cuda()
+        for kernel, var, run, plain, n_rows, library in probe_jobs(q, k, v, m, seq_k):
+            edge = case.startswith("edge")
+            rows[kernel].append(_probe_case(
+                kernel, case, var, run, plain, library, probe_roofline(Sq, Sk, n_rows),
+                (Sq, Sk, seq_k), edge and (
+                    lambda o, lse, kernel=kernel, var=var: dropped_probe_tile_errors(
+                        kernel, var, q, k, v, m, seq_k, o, lse)), checked,
+                edge and (lambda lse_ref: probe_lse_bound(q, k, lse_ref))))
         del q, k, v, m
         torch.cuda.empty_cache()
     # the lab's q is as long as its padded keys
-    for case, (Sk, seq_k) in (("tool", (LAB_S, LAB_S)), ("ragged", PROBE_RAGGED[1:])):
+    lab_cases = [("tool", (LAB_S, LAB_S)), ("ragged", PROBE_RAGGED[1:])] + [
+        (f"edge{Sk}s{seq_k}", (Sk, seq_k)) for Sq, Sk, seq_k in PROBE_EDGES if Sq == Sk]
+    for case, (Sk, seq_k) in lab_cases:
         q, k, v = lab_inputs(Sk, "cuda", seed=4)
         for var in fp.LAB_VARIANTS:
             rows["flash_probe_lab"].append(_probe_case(
                 "flash_probe_lab", case, var,
                 lambda var=var: (fp.flash_lab(q, k, v, var, seq_k=seq_k), None),
                 lambda var=var: (fp.flash_lab_reference(q, k, v, var, seq_k=seq_k), None),
-                sdpa_call(q, k, v, seq_k),
-                probe_roofline(Sk, seq_k, 0), (Sk, Sk, seq_k)))
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q[None], k[None, :, :seq_k], v[None, :, :seq_k])[0],
+                probe_roofline(Sk, seq_k, 0), (Sk, Sk, seq_k),
+                case.startswith("edge") and (lambda o, lse, var=var: dropped_probe_tile_errors(
+                    "flash_probe_lab", var, q, k, v, None, seq_k, o, lse)), checked))
         del q, k, v
         torch.cuda.empty_cache()
+    modes = {(kernel, r["variant"]) for kernel, rs in rows.items() for r in rs}
+    if modes - checked:
+        fail(f"no shape held these probe modes to a dropped last key tile: {modes - checked}")
     return rows
 
 
-def _probe_case(kernel, case, variant, run, plain, library, bound, shape) -> dict:
+def _probe_case(kernel, case, variant, run, plain, library, bound, shape, dropped,
+                checked, lse_bound=None) -> dict:
     o, lse = run()
     o_ref, lse_ref = plain()
     torch.cuda.synchronize()
     err = (o.float() - o_ref.float()).abs().max().item()
     tol = fwd_bound(o_ref)
-    lse_err = None if lse is None else (lse - lse_ref).abs().max().item()
+    lse_err = lse_excess = None
+    lse_tol = LSE_TOL
+    if lse is not None:
+        lse_tol = lse_bound(lse_ref) if lse_bound else torch.full_like(lse_ref, LSE_TOL)
+        lse_err = (lse - lse_ref).abs().max().item()
+        lse_excess = ((lse - lse_ref).abs() - lse_tol).max().item()  # > 0: out of bound
+        lse_tol = lse_tol.max().item()
+    cut = dropped(o, lse) if dropped else None
     row = {"case": case, "variant": variant, "dtype": "bfloat16",
            "shape": dict(zip(("Sq", "Sk", "seq_k"), shape)), "max_abs_err": err, "tol": tol,
            "plain_max_abs": o_ref.float().abs().max().item(), "lse_max_abs_err": lse_err,
-           "lse_tol": LSE_TOL, "ms": cuda_ms(run, reps=5), "plain_ms": cuda_ms(plain, reps=3),
+           "lse_tol": lse_tol, "dropped_tile_err": cut, "ms": cuda_ms(run, reps=5),
+           "plain_ms": cuda_ms(plain, reps=3),
            "library_ms": cuda_ms(library, reps=5), "library": "F.scaled_dot_product_attention",
            # a yardstick of speed: it rounds p and O at other points, so it is
            # recorded beside the bound and not held to it
@@ -1197,8 +1323,14 @@ def _probe_case(kernel, case, variant, run, plain, library, bound, shape) -> dic
     emit("probe_vs_plain", kernel=kernel, **row)
     if not bool(torch.isfinite(o).all().item()) or not err <= tol:
         fail(f"{kernel} {variant} disagrees with its plain version at {case}: {err} > {tol}")
-    if lse_err is not None and not lse_err <= LSE_TOL:
-        fail(f"{kernel} {variant} lse disagrees with its plain version at {case}: {lse_err}")
+    if lse_excess is not None and not lse_excess <= 0.0:
+        fail(f"{kernel} {variant} lse disagrees with its plain version at {case}: {lse_err} "
+             f"(beyond its bound by {lse_excess})")
+    if cut is not None:
+        if not (cut["o"] > tol or cut.get("lse", 0.0) > LSE_TOL):
+            fail(f"the {kernel} {variant} bounds at {case} ({tol}, {LSE_TOL}) would pass a "
+                 f"dropped last key tile ({cut})")
+        checked.add((kernel, variant))
     return row
 
 

@@ -1,6 +1,6 @@
-// The flash-forward probe kernels for Hopper (sm_90a): one template, three
-// C entries.  They are instruments for the work on the production forwards
-// (flash_attn_fwd.cu), not part of a user's path.
+// The flash-forward probe kernels for Hopper (sm_90a): one template on the
+// tensor cores, three C entries.  They are instruments for the work on the
+// production forwards (flash_attn_fwd.cu), not part of a user's path.
 //
 // Replaces the TPU probe kernels of the JAX package's tools:
 //   - tools/flash_nomax_probe.py:_kernel   -> flash_probe_nomax
@@ -17,8 +17,9 @@
 //     denominator summed from the rounded p; "qs": the scale folded into q).
 //
 // Math.  q is [BH, Sq, 64], k and v are [BH, Sk, 64], bf16, already folded
-// over (batch, head); keys j >= seq_k are padding that the caller's arrays
-// still hold.  s_ij = q_i . k_j in f32 from the bf16 values.
+// over (batch, head); Sq and Sk may differ.  Keys j >= seq_k are padding that
+// the caller's arrays still hold.  s_ij = q_i . k_j in f32 from the bf16
+// values.
 //   const / row m (nomax, bisect):  p_ij = round_bf16(exp2(s_ij - m_i)),
 //       m_i = 15 or m[bh, i];   acc = sum_j p_ij v_j,  l = sum_j p_ij
 //       mask none:      every key of the array counts, padding included
@@ -27,150 +28,289 @@
 //       mask every:     the same p, the test on every key of every tile
 //       mask subtract:  every key counts, then l -= (Sk - seq_k) * exp2(-m_i):
 //                       exact when the padded k rows are zeros (s = 0)
-//   running m (lab), per block of 16 keys, m from -1e30:
-//       s_ij *= log2(e)/sqrt(D) in f32 (old, new), or q was folded to
-//       q' = round_bf16(q * log2(e)/sqrt(D)) first (qs); keys >= seq_k: s = -1e30
+//   running m (lab), per tile of 128 keys, m from -1e30:
+//       s_ij = round_f32(s_ij * log2(e)/sqrt(D)) (old, new: a multiply of its
+//       own, not fused into the exp2's subtraction, so rounded twice as the
+//       plain version rounds it), or q was folded to q' = round_bf16(q *
+//       log2(e)/sqrt(D)) first (qs); keys >= seq_k: p = 0
 //       m_new = max(m, max_j s_ij), alpha = exp2(m - m_new),
 //       pf_ij = exp2(s_ij - m_new), p_ij = round_bf16(pf_ij),
 //       acc = alpha*acc + sum_j p_ij v_j,
 //       l = alpha*l + sum_j pf_ij (old)  or  sum_j p_ij (new, qs)
 //   O_i = round_bf16(acc / max(l, 1e-30)),  lse_i = m_i + log2(max(l, 1e-30))
-// p is rounded to bf16 before the PV sum in every variant, as the TPU kernels
-// cast it for their matrix unit.  The TPU's ones-column in V (the denominator
-// on the matrix unit), its 128-lane padding of the head dim and its
-// lane-padded m and l scratch serve that machine's tiling and are not carried
-// over: row sums stay in registers.  The TPU's block sizes only schedule it;
-// the one place they changed the math, the padded key count, is Sk here.
+// In every mode the keys >= Sk (the zeros TMA fills the ragged last tile
+// with) get p = 0, and p is rounded to bf16 before the PV sum, as the TPU
+// kernels cast it for their matrix unit.  The TPU's ones-column in V, its
+// 128-lane padding of the head dim and its lane-padded m and l scratch serve
+// that machine's tiling and are not carried over.  The lab's 128-key tile is
+// where p is rounded against the running max (ops/flash_probes.py:LAB_BLOCK_K,
+// the TPU tool's bk = 128 in the tests).
 //
-// What bounds it on an H100: 4*S^2*64*BH FLOP (7.1e11 at the padded
-// S = 21504, BH = 6: 0.72 ms at the 989 TFLOP/s bf16 peak) against ~66 MB of
-// q/k/v/O (0.02 ms at 3.35 TB/s): the operations, by a factor of ~36.
+// What bounds it on an H100: 4*Sq*Sk*64*BH FLOP (7.1e11 at the padded
+// Sq = Sk = 21504, BH = 6: 0.72 ms at the 989 TFLOP/s bf16 peak) against ~66
+// MB of q/k/v/O (0.02 ms at 3.35 TB/s): the operations, by a factor of ~36.
+// Beside them Sq*Sk*BH exp2 on the special-function units (16 a clock an SM:
+// the same 0.72 ms), as in the production forward.
 //
-// Design: the tiling of the first f32 forward (one CTA per 64-row q tile and
-// head, one thread per query row, K/V tiles of 64 keys in shared memory as
-// f32, f32 FMA), with template parameters for the source of m, the mask mode,
-// where the scale goes and which p the denominator sums.  `nh` heads are
-// walked by one CTA one after another (the TPU's heads-per-call knob).  It is
-// bounded by the f32 FMA pipes, and the probes measure what each variation
-// costs on top of that baseline.  The production forwards, bf16 and f32, have
-// since moved to the tensor cores (flash_attn_fwd.cu), so these are
-// instruments of the FMA design; a variation's cost on the wgmma kernels is
-// another measurement.
+// Design: the production bf16 forward's (flash_attn_fwd.cu,
+// flash_fwd_wgmma_kernel), with its tile step (flash_fwd_tile.cuh) taking the
+// variant's knobs.  One CTA per (bh, 128 query rows): two consumer
+// warpgroups of 64 rows and a producer warpgroup (384 threads), K and V tiles
+// of 128 keys through a three-stage TMA ring over tensor maps (64, 1, Sk,
+// BH), S_j = Q.K_j^T (m64n128k16) started beside P_{j-1}.V_{j-1}
+// (m64n64k16, p as register A fragments) and the softmax of tile j taken
+// while P.V runs.  The grid and the store take Sq, the key loop Sk.  q comes
+// by the consumers' loads: copied as it is, or folded (qs).  The rounded-p
+// denominators sum on the tensor cores (add_row_sums); lab old sums its f32
+// p on the FMA pipes, a partial sum per thread that is rescaled with acc and
+// summed over the quad at the end.  The per-key test of mask "every" runs on
+// every tile (a runtime bound the compiler cannot fold), against one
+// per-thread limit: the column's own sum kept a register live and spilled
+// (these kernels sit at the 168-register cap of 384 threads, as the
+// production forward does).  `nh` only checks BH % nh: every CTA walks one
+// head (the TPU's heads-per-call knob schedules that machine and does not
+// change the result).
+// Measured (H100 at 700 W, chip_smoke.py; PERF.md section 6): at the tools'
+// shapes 1.6-1.75 ms for nomax and bisect A-E and 1.85-1.96 for the lab,
+// from 30-37 on the f32 FMA pipes, beside SDPA's 1.5-1.7 and a 0.65-0.72 ms
+// bound; the every-key test costs nothing measurable (D = C), and the lab's
+// f32 sum on the FMA pipes (old) runs ~4% ahead of the rounded-p sum on
+// mma.sync (new), which shares the tensor cores with the products.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // Bound to PyTorch with ctypes (da3slam_tpu_torch/ops/flash_probes.py).
 
 #include "flash_common.cuh"
+#include "flash_fwd_tile.cuh"
+#include "flash_wgmma.cuh"
 
 namespace {
 
 using namespace flash;
+using namespace hopper;
 using T = __nv_bfloat16;
 
-constexpr int kBlockQ = 64;  // query rows per CTA = threads per CTA
-constexpr int kBlockK = 64;  // keys per shared-memory tile
-constexpr int kSub = 16;     // keys per online-softmax update
-constexpr float kNegInf = -1e30f;
+constexpr int kConsumers = 2;   // consumer warpgroups (64 query rows each) a CTA
+constexpr int kStages = 3;      // K/V ring depth
+constexpr int kQBarrier = 1;    // named barrier 1 + wg closes a warpgroup's q tile
+constexpr int kWgRows = 64;
+constexpr int kWgThreads = 128;
+constexpr int kRowsQ = kWgRows * kConsumers;
+constexpr int kThreads = kWgThreads * (kConsumers + 1);
+constexpr int kTileBytes = kTileK * kRowBytes;  // one K or V tile: 16 KB
+constexpr int kStageBytes = 2 * kTileBytes;
+constexpr int kQBytes = kRowsQ * kRowBytes;
+// q tile, the ring, a full and an empty barrier per stage; 1024 more to align
+constexpr int kSmemBytes = kGroupBytes + kQBytes + kStages * kStageBytes + 2 * kStages * 8;
+static_assert(kSmemBytes <= 232448, "shared memory of one CTA");
+constexpr float kNegInf = -1e30f;  // the lab's m before the first tile
 
 enum MSource { kMConst, kMRow, kMRunning };
 enum MaskMode { kMaskNone, kMaskLast, kMaskEvery, kMaskSubtract };
 enum ScaleMode { kScaleNone, kScaleS, kScaleQ };
 
+// One key tile of a probe: the softmax step (flash_fwd_tile.cuh) with the
+// variant's knobs, then the denominator: rescaled by alpha (running m), plus
+// the rounded p on the tensor cores or, for the f32 p (lab old), this
+// thread's share on the FMA pipes.  Keys at n_valid and beyond get p = 0.
 template <MSource kM, MaskMode kMask, ScaleMode kScale, bool kRoundedDenom>
-__global__ void __launch_bounds__(kBlockQ)
-flash_probe_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+__device__ __forceinline__ void probe_step(const float (&s)[64], uint32_t (&p)[32], float (&m)[2],
+                                           float (&alpha)[2], float (&l)[4], float (&lf)[2],
+                                           int n_valid, int c2, float scale) {
+  constexpr bool kStable = kM == kMRunning;
+  float psum[2];
+  softmax_tile<kStable, kMask == kMaskEvery, kScale == kScaleS, !kRoundedDenom>(
+      s, p, m, alpha, n_valid, c2, scale, psum);
+  if constexpr (kStable) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) l[i] *= alpha[i >> 1];
+  }
+  if constexpr (kRoundedDenom) {
+    add_row_sums(l, p);
+  } else {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) lf[r] = lf[r] * alpha[r] + psum[r];
+  }
+}
+
+template <MSource kM, MaskMode kMask, ScaleMode kScale, bool kRoundedDenom>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_probe_kernel(const __grid_constant__ CUtensorMap k_map,
+                   const __grid_constant__ CUtensorMap v_map, const T* __restrict__ q,
                    const float* __restrict__ m_in, T* __restrict__ o, float* __restrict__ lse,
-                   int Sq, int Sk, int seq_k, int nh, float scale, float m_const) {
-  __shared__ __align__(16) float k_tile[kBlockK][kHeadDim];
-  __shared__ __align__(16) float v_tile[kBlockK][kHeadDim];
+                   int Sq, int Sk, int seq_k, float scale, float m_const) {
+  constexpr bool kStable = kM == kMRunning;
+  constexpr bool kSumF32 = !kRoundedDenom;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((kGroupBytes - (smem_addr(smem_raw) & (kGroupBytes - 1))) &
+                              (kGroupBytes - 1));
+  uint8_t* q_tile = smem;
+  const uint32_t ring = smem_addr(smem + kQBytes);
+  const uint32_t full_bar = ring + kStages * kStageBytes;
+  const uint32_t empty_bar = full_bar + kStages * 8;
 
-  const int row = blockIdx.x * kBlockQ + threadIdx.x;
-  const bool active = row < Sq;
+  const int bh = blockIdx.y;
+  const int n_tiles = (Sk + kTileK - 1) / kTileK;
 
-  for (int hh = 0; hh < nh; ++hh) {
-    const int bh = blockIdx.y * nh + hh;
-    const T* kb = k + static_cast<size_t>(bh) * Sk * kHeadDim;
-    const T* vb = v + static_cast<size_t>(bh) * Sk * kHeadDim;
-    const size_t q_off = (static_cast<size_t>(bh) * Sq + row) * kHeadDim;
-
-    float qr[kHeadDim];
-    if (active) {
-#pragma unroll
-      for (int d = 0; d < kHeadDim; d += Vec16<T>::kN) {
-        float x[Vec16<T>::kN];
-        Vec16<T>::load(q + q_off + d, x);
-#pragma unroll
-        for (int i = 0; i < Vec16<T>::kN; ++i) {
-          qr[d + i] = kScale == kScaleQ ? round_to<T>(x[i] * scale) : x[i];
-        }
-      }
-    } else {
-#pragma unroll
-      for (int d = 0; d < kHeadDim; ++d) qr[d] = 0.f;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full_bar + st * 8, 1);
+      mbar_init(empty_bar + st * 8, 4 * kConsumers);
     }
-    float m = kNegInf;
-    if (kM == kMConst) m = m_const;
-    if (kM == kMRow) m = active ? m_in[static_cast<size_t>(bh) * Sq + row] : 0.f;
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-    float acc[kHeadDim];
-#pragma unroll
-    for (int d = 0; d < kHeadDim; ++d) acc[d] = 0.f;
-    float l = 0.f;
-
-    for (int k0 = 0; k0 < Sk; k0 += kBlockK) {
-      const int nk = min(kBlockK, Sk - k0);
-      __syncthreads();  // the previous tile (or head) has been consumed
-      stage_tile<T, kBlockK>(k_tile, kb, kHeadDim, k0, nk, 1.f, threadIdx.x, kBlockQ);
-      stage_tile<T, kBlockK>(v_tile, vb, kHeadDim, k0, nk, 1.f, threadIdx.x, kBlockQ);
-      __syncthreads();
-      if (!active) continue;
-      // does this tile test its keys against seq_k?
-      const bool check = kMask == kMaskEvery || (kMask == kMaskLast && k0 + nk > seq_k);
-      if constexpr (kM == kMRunning) {
-        for (int j0 = 0; j0 < nk; j0 += kSub) {
-          float s[kSub];
-          float m_blk = kNegInf;
-#pragma unroll
-          for (int jj = 0; jj < kSub; ++jj) {
-            // rows past nk are zeros: the score is taken unconditionally
-            float sc = score(qr, k_tile[j0 + jj]);
-            if (kScale == kScaleS) sc *= scale;
-            const bool keep = (j0 + jj < nk) && (!check || k0 + j0 + jj < seq_k);
-            s[jj] = keep ? sc : kNegInf;
-            m_blk = fmaxf(m_blk, s[jj]);
-          }
-          const float m_new = fmaxf(m, m_blk);
-          const float alpha = exp2f(m - m_new);
-          l *= alpha;
-#pragma unroll
-          for (int d = 0; d < kHeadDim; ++d) acc[d] *= alpha;
-          m = m_new;
-#pragma unroll
-          for (int jj = 0; jj < kSub; ++jj) {
-            const float pf = exp2f(s[jj] - m);
-            const float p = round_to<T>(pf);
-            l += kRoundedDenom ? p : pf;
-            accumulate(acc, p, v_tile[j0 + jj]);
-          }
-        }
-      } else {
-        for (int j = 0; j < nk; ++j) {
-          float pf = exp2f(score(qr, k_tile[j]) - m);
-          if (check && k0 + j >= seq_k) pf = 0.f;
-          const float p = round_to<T>(pf);
-          l += p;
-          accumulate(acc, p, v_tile[j]);
+  const int wg = threadIdx.x / kWgThreads;
+  if (wg == kConsumers) {
+    // ---- producer: one thread keeps the ring full ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == kConsumers * kWgThreads) {
+      int stage = 0;
+      uint32_t parity = 1;
+      for (int t = 0; t < n_tiles; ++t) {
+        if (t >= kStages) mbar_wait(empty_bar + stage * 8, parity);
+        const uint32_t bar = full_bar + stage * 8;
+        const uint32_t dst = ring + stage * kStageBytes;
+        mbar_arrive_expect_tx(bar, kStageBytes);
+        tma_load_4d(dst, &k_map, bar, 0, 0, t * kTileK, bh);
+        tma_load_4d(dst + kTileBytes, &v_map, bar, 0, 0, t * kTileK, bh);
+        if (++stage == kStages) {
+          stage = 0;
+          parity ^= 1;
         }
       }
     }
+  } else {
+    // ---- consumers: 64 query rows a warpgroup ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int tw = threadIdx.x % kWgThreads;
+    const int lane = tw & 31;
+    const int c2 = (lane & 3) * 2;
+    const int wg_row0 = wg * kWgRows;
+    const int q_row0 = blockIdx.x * kRowsQ + wg_row0;
+    const size_t head_base = static_cast<size_t>(bh) * Sq * kHeadDim;
 
-    if (active) {
-      if (kMask == kMaskSubtract) l -= static_cast<float>(Sk - seq_k) * exp2f(-m);
-      const float lc = fmaxf(l, 1e-30f);
-      T* orow = o + q_off;
+    // q (qs: folded to round_bf16(q * scale)) swizzled into shared memory, 8
+    // threads a row; rows past Sq are zeros (finite, never stored)
 #pragma unroll
-      for (int d = 0; d < kHeadDim; ++d) orow[d] = from_f32<T>(acc[d] / lc);
-      if (lse != nullptr) lse[static_cast<size_t>(bh) * Sq + row] = m + log2f(lc);
+    for (int i = 0; i < kWgRows * 8 / kWgThreads; ++i) {
+      const int idx = tw + kWgThreads * i;
+      const int r = idx >> 3;
+      const int chunk = idx & 7;
+      uint4 w = make_uint4(0u, 0u, 0u, 0u);
+      if (q_row0 + r < Sq) {
+        const T* src = q + head_base + static_cast<size_t>(q_row0 + r) * kHeadDim + chunk * 8;
+        if constexpr (kScale == kScaleQ) {
+          float x[8];
+          Vec16<T>::load(src, x);
+          w = make_uint4(pack_bf16(x[0] * scale, x[1] * scale),
+                         pack_bf16(x[2] * scale, x[3] * scale),
+                         pack_bf16(x[4] * scale, x[5] * scale),
+                         pack_bf16(x[6] * scale, x[7] * scale));
+        } else {
+          w = *reinterpret_cast<const uint4*>(src);
+        }
+      }
+      *reinterpret_cast<uint4*>(q_tile + swizzled_chunk(wg_row0 + r, chunk)) = w;
+    }
+    fence_proxy_async();
+    named_barrier_sync(kQBarrier + wg, kWgThreads);
+
+    // this thread's two rows of the warpgroup's 64
+    const int row_lo = 16 * (tw >> 5) + (lane >> 2);
+    float m[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q_row0 + row_lo + 8 * r;
+      if constexpr (kM == kMConst) m[r] = m_const;
+      if constexpr (kM == kMRow) m[r] = row < Sq ? m_in[static_cast<size_t>(bh) * Sq + row] : 0.f;
+      if constexpr (kM == kMRunning) m[r] = kNegInf;
+    }
+    float l[4] = {0.f, 0.f, 0.f, 0.f};  // rounded p: add_row_sums
+    float lf[2] = {0.f, 0.f};           // f32 p (lab old): this thread's share
+    float alpha[2] = {1.f, 1.f};
+    float s[64];
+    float acc[32];
+    uint32_t p[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+
+    // keys of tile t below this many count; masks last and every test
+    // against seq_k, the others only against the array's end
+    const int key_end = kMask == kMaskLast || kMask == kMaskEvery ? seq_k : Sk;
+
+    const uint64_t q_desc = tile_desc(smem_addr(q_tile) + wg_row0 * kRowBytes);
+
+    mbar_wait(full_bar, 0);
+    wgmma_fence();
+    start_scores(s, q_desc, ring);
+    wgmma_wait<0>();
+    pin(s);
+    probe_step<kM, kMask, kScale, kRoundedDenom>(s, p, m, alpha, l, lf, key_end, c2, scale);
+
+    int prev = 0;
+    uint32_t parity = 0;
+    for (int t = 1; t < n_tiles; ++t) {
+      int stage = prev + 1;
+      if (stage == kStages) {
+        stage = 0;
+        parity ^= 1;
+      }
+      mbar_wait(full_bar + stage * 8, parity);
+      pin(s);
+      pin(acc);
+      pin(p);
+      wgmma_fence();
+      start_scores(s, q_desc, ring + stage * kStageBytes);
+      start_pv(acc, p, ring + prev * kStageBytes + kTileBytes);
+      wgmma_wait<1>();
+      pin(s);
+      uint32_t p_next[32];
+      probe_step<kM, kMask, kScale, kRoundedDenom>(s, p_next, m, alpha, l, lf,
+                                                  key_end - t * kTileK, c2, scale);
+      wgmma_wait<0>();
+      pin(acc);
+      pin(p);
+      if (lane == 0) mbar_arrive(empty_bar + prev * 8);
+      if constexpr (kStable) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) p[i] = p_next[i];
+      prev = stage;
+    }
+    pin(acc);
+    pin(p);
+    wgmma_fence();
+    start_pv(acc, p, ring + prev * kStageBytes + kTileBytes);
+    wgmma_wait<0>();
+    pin(acc);
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float lr = l[2 * r];
+      if constexpr (kSumF32) {
+        // a row's sum is spread over the four threads of a quad
+        lr = lf[r];
+        lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+        lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+      }
+      if constexpr (kMask == kMaskSubtract) lr -= static_cast<float>(Sk - seq_k) * exp2f(-m[r]);
+      const float lc = fmaxf(lr, 1e-30f);
+      const int row = q_row0 + row_lo + 8 * r;
+      if (row < Sq) {
+        T* orow = o + head_base + static_cast<size_t>(row) * kHeadDim + c2;
+#pragma unroll
+        for (int j = 0; j < kHeadDim / 8; ++j) {
+          *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+              pack_bf16(acc[4 * j + 2 * r] / lc, acc[4 * j + 2 * r + 1] / lc);
+        }
+        if (lse != nullptr && (lane & 3) == 0) {
+          lse[static_cast<size_t>(bh) * Sq + row] = m[r] + log2f(lc);
+        }
+      }
     }
   }
 }
@@ -180,15 +320,23 @@ int launch(const void* q, const void* k, const void* v, const void* m_in, void* 
            int BH, int Sq, int Sk, int seq_k, int nh, float scale, float m_const,
            void* stream) {
   if (BH <= 0 || Sq <= 0 || Sk <= 0 || seq_k <= 0 || seq_k > Sk || nh <= 0 || BH % nh != 0 ||
-      BH / nh > 65535) {
+      BH > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, BH / nh);
+  // k and v as (64, 1, Sk, BH): the production forward's map with H = 1
+  CUtensorMap k_map, v_map;
+  cudaError_t err = make_head_tile_map(&k_map, k, BH, Sk, 1, kTileK);
+  if (err == cudaSuccess) err = make_head_tile_map(&v_map, v, BH, Sk, 1, kTileK);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(flash_probe_kernel<kM, kMask, kScale, kRoundedDenom>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((Sq + kRowsQ - 1) / kRowsQ, BH);
   flash_probe_kernel<kM, kMask, kScale, kRoundedDenom>
-      <<<grid, kBlockQ, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-          static_cast<const float*>(m_in), static_cast<T*>(o), static_cast<float*>(lse), Sq, Sk,
-          seq_k, nh, scale, m_const);
+      <<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      k_map, v_map, static_cast<const T*>(q), static_cast<const float*>(m_in),
+      static_cast<T*>(o), static_cast<float*>(lse), Sq, Sk, seq_k, scale, m_const);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -196,8 +344,9 @@ constexpr float kProbeM = 15.f;  // the tools' literal stand-in for the norm bou
 
 }  // namespace
 
-// Every tensor is bf16 and contiguous; m and lse are f32 [BH, Sq].  Each entry
-// returns a cudaError_t (0 on success); the caller raises on anything else.
+// Every tensor is bf16, contiguous and 16-byte aligned; m and lse are f32
+// [BH, Sq].  Each entry returns a cudaError_t (0 on success); the caller
+// raises on anything else.
 
 extern "C" int flash_probe_nomax(const void* q, const void* k, const void* v, void* o, int BH,
                                  int Sq, int Sk, void* stream) {

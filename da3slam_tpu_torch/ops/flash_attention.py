@@ -70,7 +70,7 @@ TF32_PAD = 64
 STABLE_BLOCK_K = 128
 
 _CSRC = Path(__file__).parent / "csrc"
-_HEADERS = ("flash_common.cuh", "flash_wgmma.cuh", "flash_tf32.cuh")
+_HEADERS = ("flash_common.cuh", "flash_wgmma.cuh", "flash_tf32.cuh", "flash_fwd_tile.cuh")
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "da3slam_tpu_torch"
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -92,6 +92,7 @@ _SOURCES = {
     },
     "conv3x3.cu": {
         "conv3x3_fwd": [_P] * 4 + [_I] * 7 + [_P],
+        "conv3x3_wgmma_fwd": [_P] * 4 + [_I] * 7 + [_P],
     },
     # the int8 probe forward (ops/int8_flash.py)
     "int8_flash_fwd.cu": {

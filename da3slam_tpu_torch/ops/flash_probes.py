@@ -22,12 +22,15 @@ They are instruments for the work on the production forwards
   ``LAB_BLOCK_K`` keys, padding at −1e30) in three variants: ``old`` scales
   the logits in f32 and sums the denominator from the unrounded p; ``new``
   sums it from the rounded p; ``qs`` also folds the scale into q, rounded to
-  q's dtype.  ``nh`` heads are walked by one thread block; it schedules only.
+  q's dtype.  ``nh`` must divide BH and changes nothing else (the TPU's
+  heads-per-call knob; the kernel walks one head a thread block).
 
 p is rounded to v's dtype before the PV sum in every variant.  Each wrapper
 dispatches on where its inputs live: CUDA tensors launch the hand-written
-kernel (``csrc/flash_probe_fwd.cu``) or raise; CPU tensors run the plain
-version beside it.  Each counts its launches in ``.launches``.
+kernel (``csrc/flash_probe_fwd.cu``: one template on the tensor cores, the
+production bf16 forward's design with the variant's knobs) or raise; CPU
+tensors run the plain version beside it.  Each counts its launches in
+``.launches``.
 """
 
 from __future__ import annotations
@@ -38,7 +41,10 @@ from da3slam_tpu_torch.ops.flash_attention import HEAD_DIM, LOG2E, launch_kernel
 
 PROBE_M = 15.0  # the tools' literal stand-in for the per-row norm bound
 NEG_INF = -1e30
-LAB_BLOCK_K = 16  # keys per online-softmax update in the lab kernel (kSub)
+KEY_TILE = 128  # keys a ring stage of the probe kernel (kTileK)
+# keys per online-softmax update in the lab kernel: its key tile, where p is
+# rounded against the running max, as the TPU tool's bk = 128
+LAB_BLOCK_K = KEY_TILE
 # variant -> (m is a per-row input, how the padded keys are treated)
 BISECT_VARIANTS = {
     "A": (False, "none"),

@@ -8,8 +8,9 @@
     python -m da3slam_tpu_torch.tools.flash_lab [S]
 
 q, k, v are ``[6, Sp, 64]`` bf16 with ``Sp`` = S rounded up to ``--pad``
-(2048); keys past S are masked.  ``--nh`` heads are walked by one thread
-block.
+(2048); keys past S are masked.  ``--nh`` is the TPU tool's heads per call:
+it must divide BH and changes nothing here (the kernel walks one head a
+thread block).
 """
 
 from __future__ import annotations

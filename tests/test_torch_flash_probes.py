@@ -6,10 +6,12 @@ the ``_kernel`` of the JAX package's ``tools/flash_nomax_probe.py``,
 run through the Pallas interpreter with the tool's own block specs, on the
 same numpy inputs in bf16 (the tools' type) at S = 300 in blocks of 128.
 Tolerances: O to 2^-6·max|O| (p is rounded to bf16 at the same point in both;
-an f32 difference in the logits can tip a p across a rounding boundary, the
-lab's running max is taken over 128 keys there and 16 here, and O is rounded
-to bf16: two to four output ulps), lse to 1e-3.  CUDA cases (marker ``cuda``,
-skipped without a card) hold the hand-written kernels to the plain versions:
+an f32 difference in the logits can tip a p across a rounding boundary, and O
+is rounded to bf16: two to four output ulps), lse to 1e-3.  The lab's running
+max is taken over 128 keys in both (the tool's bk and ``LAB_BLOCK_K``, the
+kernel's key tile), so its rounding points are the same: one output ulp.
+CUDA cases (marker ``cuda``, skipped without a card) hold the hand-written
+kernels to the plain versions:
 
     python -m pytest --noconftest -m cuda tests/test_torch_flash_probes.py
 """
@@ -25,6 +27,7 @@ import torch
 
 from da3slam_tpu_torch.ops.flash_probes import (
     BISECT_VARIANTS,
+    LAB_BLOCK_K,
     LAB_VARIANTS,
     PROBE_M,
     flash_bisect,
@@ -178,6 +181,22 @@ class TestLabMatchesJax:
         o_jax = jax_lab(load_tool("flash_lab"), q, k, v, variant, S, nh)
         assert_o_close(flash_lab(q, k, v, variant, seq_k=S, nh=nh), o_jax)
 
+    @pytest.mark.parametrize("variant", LAB_VARIANTS)
+    def test_rounding_points_are_the_tools(self, variant):
+        """``LAB_BLOCK_K`` is the tool's bk (128): p is rounded against the
+        same running max at the same keys, so the two differ by the order of
+        f32 sums alone.  That tips a few outputs to a bf16 neighbour: at most
+        one ulp of max|O|, and under 1% of the outputs differ at all (0.05-
+        0.15% measured; rounding p against a 16-key running max moves 28%)."""
+        assert LAB_BLOCK_K == BLOCK
+        q, k, v = inputs(11, q_scale=1.0, zero_pad=False)
+        o_jax = np.asarray(jax_lab(load_tool("flash_lab"), q, k, v, variant, S, 1),
+                           np.float32)[:, :S]
+        o = flash_lab(q, k, v, variant, seq_k=S).float().numpy()[:, :S]
+        ulp = 2.0 ** (np.floor(np.log2(np.abs(o_jax).max())) - 7)
+        assert np.abs(o - o_jax).max() <= ulp
+        assert (o != o_jax).mean() < 0.01
+
     def test_is_softmax_attention_over_the_unpadded_keys(self):
         rng = np.random.default_rng(6)
         q, k, v = (torch.from_numpy(a.astype(np.float32)) for a in rng.normal(size=(3, BH, 70, D)))
@@ -265,6 +284,44 @@ class TestWrappers:
             mod.main(argv)
 
 
+class TestDroppedTileBreaksTheSmokeBound:
+    """chip_smoke.py holds each probe mode at the tile-edge lengths to the plain
+    version and checks that the plain version without the last 128-key tile
+    breaks that bound.  Here the plain output stands in for the kernel's, on
+    the smoke's own inputs (numpy-made, so the same on any device)."""
+
+    def test_every_mode_is_held_to_a_dropped_tile(self):
+        import chip_smoke
+        from da3slam_tpu_torch.tools.flash_lab import lab_inputs
+        from da3slam_tpu_torch.tools.flash_nomax_probe import probe_inputs
+
+        checked = set()
+        for Sq, Sk, seq_k in chip_smoke.PROBE_EDGES:
+            q, k, v = probe_inputs(Sq, Sk, "cpu", seed=4, seq_k=seq_k)
+            m = chip_smoke.probe_m(Sq)
+            for kernel, var, _, plain, _, _ in chip_smoke.probe_jobs(q, k, v, m, seq_k):
+                o, lse = plain()
+                cut = chip_smoke.dropped_probe_tile_errors(kernel, var, q, k, v, m, seq_k, o, lse)
+                if cut is not None:
+                    tol = chip_smoke.fwd_bound(o)
+                    assert cut["o"] > tol or cut.get("lse", 0.0) > chip_smoke.LSE_TOL, \
+                        (kernel, var, Sq, Sk, seq_k, cut)
+                    checked.add((kernel, var))
+            if Sq != Sk:
+                continue
+            q, k, v = lab_inputs(Sk, "cpu", seed=4)
+            for var in LAB_VARIANTS:
+                o = flash_lab_reference(q, k, v, var, seq_k=seq_k)
+                cut = chip_smoke.dropped_probe_tile_errors("flash_probe_lab", var, q, k, v, None,
+                                                           seq_k, o, None)
+                if cut is not None:
+                    assert cut["o"] > chip_smoke.fwd_bound(o), (var, Sk, seq_k, cut)
+                    checked.add(("flash_probe_lab", var))
+        assert checked == ({("flash_probe_nomax", "nomax")}
+                           | {("flash_probe_bisect", t) for t in BISECT_VARIANTS}
+                           | {("flash_probe_lab", t) for t in LAB_VARIANTS})
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -279,6 +336,12 @@ def assert_kernel_close(o, o_ref):
 
 
 CARD_SHAPES = [(SP, SP, S), (333, 1301, 1250), (63, 50, 50)]  # (Sq, Sk, seq_k)
+# lengths around the kernel's tiles (128 query rows a CTA, 128 keys a stage):
+# Sq and Sk at 127/128/129 and 255/257, apart and equal, seq_k in the first
+# tile and in the last
+EDGE_SHAPES = [(L, L, L) for L in (127, 128, 129, 255, 257)] + [
+    (L, L, 100) for L in (127, 128, 129, 255, 257)] + [
+    (127, 257, 250), (257, 129, 129), (255, 128, 50), (129, 255, 200), (128, 257, 129)]
 
 
 @pytest.mark.cuda
@@ -315,6 +378,30 @@ class TestKernelsOnCard:
         torch.cuda.synchronize()
         assert flash_lab.launches == before + 1
         assert_kernel_close(o, flash_lab_reference(q, k, v, variant, seq_k=seq_k))
+
+    @pytest.mark.parametrize("Sq,Sk,seq_k", EDGE_SHAPES)
+    def test_tile_edges(self, card, Sq, Sk, seq_k):
+        """Every mode of every probe at the tile edges: the ragged last key
+        tile (zero-filled past Sk), the padding [seq_k, Sk) in the first or
+        the last tile, rows past Sq never stored.  lse to chip_smoke.py's
+        bound at these lengths (LSE_TOL and one rounding tip of the row's
+        largest p, which can hold 30% of a row's mass here)."""
+        import chip_smoke
+
+        q, k, v, m = self.card_inputs(card, Sq, Sk, seq_k, 0.18)
+        assert_kernel_close(flash_nomax(q, k, v), flash_nomax_reference(q, k, v))
+        for variant in sorted(BISECT_VARIANTS):
+            o, lse = flash_bisect(q, k, v, variant, m, seq_k=seq_k)
+            o_ref, lse_ref = flash_bisect_reference(q, k, v, variant, m, seq_k=seq_k)
+            torch.cuda.synchronize()
+            assert_kernel_close(o, o_ref)
+            assert ((lse - lse_ref).abs() <= chip_smoke.probe_lse_bound(q, k, lse_ref)).all(), \
+                variant
+        q, k, v, _ = self.card_inputs(card, Sq, Sk, seq_k, 1.0)
+        for variant in LAB_VARIANTS:
+            o = flash_lab(q, k, v, variant, seq_k=seq_k)
+            torch.cuda.synchronize()
+            assert_kernel_close(o, flash_lab_reference(q, k, v, variant, seq_k=seq_k))
 
     def test_refuses_what_the_kernels_do_not_take(self, card):
         q, k, v, m = self.card_inputs(card, 64, 64, 64, 1.0)
