@@ -9,10 +9,10 @@ final line:
 2. build: nvcc build of every kernel (flash attention, the flash probes, the
    3x3 conv, the int8 probe), with ptxas's registers, shared memory and spills
    per kernel; a register spill or a serialized wgmma (C7510-C7515) in the
-   forwards', the backward's, the probes' or the conv's source fails the
-   phase, and so does an f32 forward or backward kernel without TF32 HGMMA
-   instructions in ``cuobjdump -sass``, or a probe or bf16 conv kernel
-   without bf16 ones
+   forwards', the backward's, the probes', the conv's or the int8 probe's
+   source fails the phase, and so does an f32 forward or backward kernel
+   without TF32 HGMMA instructions in ``cuobjdump -sass``, a probe or bf16
+   conv kernel without bf16 ones, or the int8 kernel without s8 IGMMA ones
 3. kernel vs plain, bound and stable forwards: each kernel against its plain
    torch version, both on the card, at the SMALL tier's shapes, for the bound
    forward the LARGE tier's, at lengths around the bf16 kernel's 64-row
@@ -55,9 +55,11 @@ final line:
     tiles; there the plain version without the last key tile must break each
     mode's bound
 12. int8 flash vs plain: the int8 probe kernel against its plain version at
-    the tool's shape, the tool's check shape (a ragged last block) and a small
-    ragged case; the plain version with a key tile or its last block dropped
-    must break the bound; the error against f32 softmax attention beside it
+    the tool's shape, the tool's check shape (a ragged last block) and small
+    ragged cases (``block_k`` 64 and 192); the plain version with a key tile
+    or its last block dropped must break the bound; the error against f32
+    softmax attention beside it; the kernel timed alone on quantized inputs,
+    the whole wrapper and its quantization beside it
 13. tools: ``da3slam_tpu_torch.tools``' five ``main``s, counting the launches
 14. main_align: ``da3slam_tpu_torch.cli.main_align`` at the LARGE tier
     (``--method irls``, ray poses, chunk 15) over the same 31 frames: a finite
@@ -250,18 +252,22 @@ PROBE_DROP_MIN = 64
 LSE_TIP = 2.0 ** -7 / 0.6931471805599453
 # The int8 flash probe: (label, dtype, shape [B, S, H, D], block_k): the tool's
 # shape, the tool's check shape (1500 keys in blocks of 512: a ragged last
-# block of 476) and a small ragged case.  Kernel and plain version quantize
-# with the same tensor code, take the same exact integer products and convert
-# them to f32 at the same points, so they differ where exp2f on the card
-# differs from torch.exp2 (if at all: a p8 at a rounding boundary tips by one
-# count of the 10^3-10^4 in a row's sum, ~1e-4 relative) and by the bf16
-# output's last bit: 2^-6 * max |O|, as for the other forwards.  A kernel that
-# skipped one 64-key tile, or the ragged last block, would move O by several
-# times that: the phase checks that the bound catches both at each shape.
+# block of 476), a small ragged case and blocks of one and of three of the
+# kernel's 64-key tiles (a tile never straddles two blocks).  Kernel and plain
+# version quantize with the same tensor code, take the same exact integer
+# products and convert them to f32 at the same points, so they differ where
+# the card's exp2 (ex2) differs from torch.exp2 (if at all: a p8 at a rounding
+# boundary tips by one count of the 10^3-10^4 in a row's sum, ~1e-4 relative)
+# and by the bf16 output's last bit: 2^-6 * max |O|, as for the other
+# forwards.  A kernel that skipped one 64-key tile, or the ragged last block,
+# would move O by several times that: the phase checks that the bound catches
+# both at each shape.
 INT8_CASES = [
     ("tool", torch.bfloat16, (1, 20816, 6, 64), 3584),
     ("check", torch.float32, (1, 1500, 2, 64), 512),
     ("ragged", torch.bfloat16, (2, 300, 3, 64), 128),
+    ("bk64", torch.bfloat16, (1, 1000, 2, 64), 64),
+    ("bk192", torch.float32, (2, 700, 3, 64), 192),
 ]
 INT8_SOFTMAX_REL_TOL = 0.08  # the tool's limit, at its check shape
 # W8A8 against float at LARGE: tests/test_quant.py's limits (depth relative
@@ -512,8 +518,9 @@ def phase_env() -> str:
 
 
 def tensor_core_instructions(library: Path) -> dict:
-    """``cuobjdump -sass`` of a built library: each kernel's HGMMA (``wgmma``)
-    instructions by kind and count, under its mangled name."""
+    """``cuobjdump -sass`` of a built library: each kernel's HGMMA and IGMMA
+    (float and integer ``wgmma``) instructions by kind and count, under its
+    mangled name."""
     import shutil
 
     exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -528,7 +535,7 @@ def tensor_core_instructions(library: Path) -> dict:
         if m:
             name = m.group(1)
             continue
-        m = re.search(r"HGMMA\.\S+", ln)
+        m = re.search(r"[HI]GMMA\.\S+", ln)
         if m and name:
             kinds = kernels.setdefault(name, {})
             kinds[m.group(0)] = kinds.get(m.group(0), 0) + 1
@@ -536,7 +543,8 @@ def tensor_core_instructions(library: Path) -> dict:
 
 
 # the sources of the tensor-core kernels: no spill, no serialized wgmma
-WGMMA_SOURCES = ("flash_attn_fwd.cu", "flash_attn_bwd.cu", "flash_probe_fwd.cu", "conv3x3.cu")
+WGMMA_SOURCES = ("flash_attn_fwd.cu", "flash_attn_bwd.cu", "flash_probe_fwd.cu", "conv3x3.cu",
+                 "int8_flash_fwd.cu")
 
 
 def phase_build() -> None:
@@ -553,16 +561,17 @@ def phase_build() -> None:
     # the f32 kernels run on the tensor cores: TF32 wgmma in the SASS of each
     # (both instantiations of the forward: bound and stable); the probe
     # template's eight instantiations and the bf16 conv's two (strips of 32
-    # and 128 channels) bf16 wgmma
-    for src, kernel, n, kind in (("flash_attn_fwd.cu", "flash_fwd_tf32_kernel", 2, ".TF32"),
-                                 ("flash_attn_bwd.cu", "flash_bwd_dq_tf32_kernel", 1, ".TF32"),
-                                 ("flash_attn_bwd.cu", "flash_bwd_dkv_tf32_kernel", 1, ".TF32"),
-                                 ("flash_probe_fwd.cu", "flash_probe_kernel", 8, ".BF16"),
-                                 ("conv3x3.cu", "conv3x3_wgmma_kernel", 2, ".BF16")):
+    # and 128 channels) bf16 wgmma; the int8 probe s8 wgmma (IGMMA)
+    for src, kernel, n, kind in (("flash_attn_fwd.cu", "flash_fwd_tf32_kernel", 2, r"\.TF32"),
+                                 ("flash_attn_bwd.cu", "flash_bwd_dq_tf32_kernel", 1, r"\.TF32"),
+                                 ("flash_attn_bwd.cu", "flash_bwd_dkv_tf32_kernel", 1, r"\.TF32"),
+                                 ("flash_probe_fwd.cu", "flash_probe_kernel", 8, r"\.BF16"),
+                                 ("conv3x3.cu", "conv3x3_wgmma_kernel", 2, r"\.BF16"),
+                                 ("int8_flash_fwd.cu", "int8_flash_kernel", 1, r"^IGMMA\..*\.S8")):
         found = [kinds for name, kinds in hgmma[src].items() if kernel in name]
-        if len(found) != n or not all(any(kind in k for k in kinds) for kinds in found):
-            fail(f"{kernel}: not {n} instantiations with {kind} HGMMA instructions in its SASS "
-                 f"({found})")
+        if len(found) != n or not all(any(re.search(kind, k) for k in kinds) for kinds in found):
+            fail(f"{kernel}: not {n} instantiations with {kind} tensor-core instructions in its "
+                 f"SASS ({found})")
     # the tensor-core kernels' accumulators must stay in registers and their
     # wgmmas asynchronous (a log exists when this process built the library,
     # as it does in a fresh checkout)
@@ -1334,14 +1343,36 @@ def _probe_case(kernel, case, variant, run, plain, library, bound, shape, droppe
     return row
 
 
+def int8_roofline(B: int, S: int, H: int, D: int) -> dict:
+    """Roofline of the int8 kernel's function on ``[B, S, H, D]``: 4·B·H·S²·D
+    integer operations at the int8 peak and B·H·S² exp2 on the
+    special-function units (``PEAK_EXP2_PER_S``), against q8, k8, v8 in and O
+    out (bf16) with the f32 row scales.  At twice the bf16 rate the products
+    take half the exp2's time, so the exp2 bounds it (``bound_op``).  The
+    kernel walks each block twice (6·S²·D products); the bound counts the
+    function's 4."""
+    r = roofline(4 * B * H * S * S * D, B * H * S * (3 * D + 2 * D + 4), torch.int8)
+    exp2_ms = B * H * S * S / PEAK_EXP2_PER_S * 1e3
+    r.update(bound_ms_ops=r["bound_ms"], exp2=B * H * S * S, exp2_floor_ms=exp2_ms,
+             bound_op="int8")
+    if exp2_ms > r["bound_ms"]:
+        r.update(bound_ms=exp2_ms, bound_by="operations", bound_op="exp2")
+    return r
+
+
 def phase_int8_flash() -> dict:
     """The int8 probe kernel against its plain version (bound: see INT8_CASES),
-    and both against f32 softmax attention (the algorithm's own error)."""
+    and both against f32 softmax attention (the algorithm's own error).  ``ms``
+    is the kernel alone (``int8_attention`` on inputs quantized once);
+    ``wrapper_ms`` the whole ``int8_flash`` call, ``quantize_ms`` and
+    ``layout_ms`` the tensor code inside it."""
     from da3slam_tpu_torch.ops.int8_flash import (
         effective_block_k,
+        int8_attention,
         int8_flash,
         int8_flash_reference,
         quantize_qkv,
+        value_layout,
     )
     from da3slam_tpu_torch.tools.int8_flash_probe import int8_inputs, softmax_attention
 
@@ -1358,6 +1389,7 @@ def phase_int8_flash() -> dict:
         ref = int8_flash_reference(q, k, v, block_k)
         torch.cuda.synchronize()
         err = (o.float() - ref.float()).abs().max().item()
+        bit_equal = (o == ref).float().mean().item()
         tol = fwd_bound(ref)
         bk = effective_block_k(S, block_k)
         last = (-(-S // bk) - 1) * bk
@@ -1370,21 +1402,22 @@ def phase_int8_flash() -> dict:
         soft_err = (o.float() - soft).abs().max().item()
         soft_rel = soft_err / soft.abs().max().item()
         del soft
-        ops = 4 * B * H * S * S * D
-        ms = cuda_ms(lambda: int8_flash(q, k, v, block_k=block_k), reps=5)
+        q8, k8, v8, sq, sk, _, _ = quantize_qkv(q, k, v, block_k)
+        vt = value_layout(v8)
+        ms = cuda_ms(lambda: int8_attention(q8, k8, vt, sq, sk, S, bk), reps=5)
         row = {"case": label, "dtype": str(dtype).replace("torch.", ""), "shape": list(shape),
-               "block_k": block_k, "max_abs_err": err, "tol": tol,
+               "block_k": block_k, "max_abs_err": err, "tol": tol, "bit_equal_share": bit_equal,
                "plain_max_abs": ref.float().abs().max().item(), "dropped_err": dropped,
                "softmax_max_abs_err": soft_err, "softmax_rel_err": soft_rel,
-               "ms": ms,
-               # the quantization before the kernel and the de-scale after it
-               # are tensor code inside ``ms``: their share, timed apart
+               "ms": ms, "wrapper_ms": cuda_ms(lambda: int8_flash(q, k, v, block_k=block_k),
+                                               reps=5),
+               # the tensor code inside ``wrapper_ms``, timed apart
                "quantize_ms": cuda_ms(lambda: quantize_qkv(q, k, v, block_k), reps=3),
+               "layout_ms": cuda_ms(lambda: value_layout(v8), reps=3),
                "plain_ms": cuda_ms(lambda: int8_flash_reference(q, k, v, block_k), reps=1),
-               "library_ms": None, "library": None, "kernel_tops": ops / ms / 1e9,
-               # q, k, v in and O out in bf16 or f32; both products count as int8
-               **roofline(ops, B * S * H * D * (3 * q.element_size() + 2), torch.int8)}
-        emit("int8_flash_vs_plain", **row)
+               "library_ms": None, "library": None, **int8_roofline(B, S, H, D)}
+        row["kernel_tops"] = row["flop"] / ms / 1e9
+        emit("int8_flash_vs_plain", **row, gpu=gpu_state())
         if not bool(torch.isfinite(o).all().item()) or not err <= tol:
             fail(f"int8_flash disagrees with its plain version at {label}: {err} > {tol}")
         for what, cut_err in dropped.items():
@@ -1395,7 +1428,7 @@ def phase_int8_flash() -> dict:
             fail(f"int8_flash is {soft_rel} of the output's range from softmax attention at "
                  f"the check shape (limit {INT8_SOFTMAX_REL_TOL})")
         rows.append(row)
-        del q, k, v, o, ref
+        del q, k, v, o, ref, q8, k8, v8, vt
         torch.cuda.empty_cache()
     return {"int8_flash_fwd": rows}
 

@@ -8,9 +8,11 @@ with both products in integers.  q is quantized per row, k per block of
 ``block_k`` keys, v per channel (all symmetric, round to nearest even, 127
 levels); p = exp2(s − m) is quantized with a fixed 127 against a running max
 that steps once a block; the sums are int32 over a block and join an f32
-carry once a block.  The quantization (``quantize_qkv``) and the final
-de-scale are plain tensor code, as they are plain ``jnp`` in the JAX tool;
-the body between them is the kernel (``csrc/int8_flash_fwd.cu``).
+carry once a block.  The quantization (``quantize_qkv``), the layout of V
+the kernel reads (``value_layout``) and the final de-scale are plain tensor
+code, as the first and last are plain ``jnp`` in the JAX tool; the body
+between them is the kernel (``csrc/int8_flash_fwd.cu``, behind
+``int8_attention``).
 
 ``block_k`` is part of the function, not a schedule: it groups k's scales and
 it is the step of the running max, so every p of a block is rounded against
@@ -20,9 +22,9 @@ number of blocks, and a padded key's score, exactly 0, joins its block's
 max (in a ragged last block m ≥ 0) while its weight in both sums is 0.
 ``block_q`` of the JAX signature only scheduled the TPU and is not taken.
 
-``int8_flash`` dispatches on where its inputs live: CUDA tensors launch the
-hand-written kernel or raise; CPU tensors run the plain version beside it.
-It counts its launches in ``.launches``.
+``int8_flash`` and ``int8_attention`` dispatch on where their inputs live:
+CUDA tensors launch the hand-written kernel or raise; CPU tensors run the
+plain version beside it.  The launches are counted in ``int8_flash.launches``.
 """
 
 from __future__ import annotations
@@ -34,6 +36,10 @@ from da3slam_tpu_torch.ops.flash_attention import HEAD_DIM, LOG2E, launch_kernel
 QMAX = 127.0
 NEG_INF = -1e30
 TILE_K = 64  # the kernel's key tile: block_k is a multiple of it
+# V^T's key order inside each group of 16: position 4c + i holds key
+# 2c + (i & 1) + 8·(i >> 1), the key that the s32 score accumulator gives
+# thread c = lane % 4 where the s8 A fragment of P·V takes inner index 4c + i
+KEY_GROUP = 16
 # int32 sums over a block: 127·127·block_k must stay under 2^31
 MAX_BLOCK_K = 131072
 
@@ -83,8 +89,8 @@ def quantize_qkv(q, k, v, block_k: int):
 
     va = vf.abs().amax((0, 1)).clamp_min(1e-30)  # [D]
     v8 = torch.round(vf / va * QMAX).clamp(-QMAX, QMAX)
-    return (q8.to(torch.int8), k8.to(torch.int8), v8.to(torch.int8),
-            sq.contiguous(), sk.contiguous(), va, bk)
+    return (q8.to(torch.int8).contiguous(), k8.to(torch.int8).contiguous(),
+            v8.to(torch.int8).contiguous(), sq.contiguous(), sk.contiguous(), va, bk)
 
 
 def _descale(out, va, shape) -> torch.Tensor:
@@ -134,6 +140,48 @@ def int8_flash_reference(q, k, v, block_k: int = 3584, drop=None) -> torch.Tenso
     return _descale(out, va, q.shape)
 
 
+def value_layout(v8: torch.Tensor) -> torch.Tensor:
+    """v8 ``[BH, Sk, D]`` as the kernel reads it: ``vt [BH, D, Sk]``, keys
+    contiguous (8-bit ``wgmma`` takes its shared-memory operands K-major
+    only), key 16g + 8h + 2c + e at position 16g + 4c + 2h + e."""
+    BH, Sk, D = v8.shape
+    return v8.view(BH, Sk // KEY_GROUP, 2, 4, 2, D).permute(0, 5, 1, 3, 2, 4).reshape(BH, D, Sk)
+
+
+def values_from_layout(vt: torch.Tensor) -> torch.Tensor:
+    """``value_layout`` undone: ``vt [BH, D, Sk]`` back to ``v8 [BH, Sk, D]``."""
+    BH, D, Sk = vt.shape
+    return vt.reshape(BH, D, Sk // KEY_GROUP, 4, 2, 2).permute(0, 2, 4, 3, 5, 1).reshape(BH, Sk, D)
+
+
+def int8_attention(q8, k8, vt, sq, sk, S: int, bk: int) -> torch.Tensor:
+    """The kernel's body on quantized inputs (``quantize_qkv``'s, with V in
+    ``value_layout``): ``O [BH, S, D]`` bf16.  CUDA tensors launch the kernel,
+    CPU tensors run ``int8_attention_reference``."""
+    ts = (q8, k8, vt, sq, sk)
+    if all(t.device.type == "cpu" for t in ts):
+        return int8_attention_reference(q8, k8, values_from_layout(vt), sq, sk, S, bk)
+    if any(t.device.type != "cuda" or t.device != q8.device for t in ts):
+        raise ValueError(f"tensors on {[str(t.device) for t in ts]}: one CUDA device "
+                         "(or all on the CPU) expected")
+    BH, Sk, D = k8.shape
+    if (q8.shape != (BH, S, D) or vt.shape != (BH, D, Sk) or D != HEAD_DIM
+            or sq.shape != (BH, S) or sk.shape != (BH, Sk // bk)):
+        raise ValueError(f"shapes {[tuple(t.shape) for t in ts]} do not fit S = {S}, "
+                         f"bk = {bk}, head_dim {HEAD_DIM}")
+    if any(t.dtype != torch.int8 for t in ts[:3]) or any(t.dtype != torch.float32 for t in ts[3:]):
+        raise ValueError(f"int8 q8, k8, vt and f32 scales expected, got {[t.dtype for t in ts]}")
+    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in ts):
+        raise ValueError("int8_attention inputs must be contiguous and 16-byte aligned")
+    if BH > 65535 or bk % TILE_K or bk > MAX_BLOCK_K or Sk % bk or Sk < S:
+        raise ValueError(f"unsupported shape: BH {BH}, S {S}, Sk {Sk}, bk {bk}")
+    out = torch.empty(BH, S, D, dtype=torch.bfloat16, device=q8.device)
+    launch_kernel("int8_flash_fwd", q8, q8.data_ptr(), k8.data_ptr(), vt.data_ptr(),
+                  sq.data_ptr(), sk.data_ptr(), out.data_ptr(), BH, S, Sk, bk)
+    int8_flash.launches += 1
+    return out
+
+
 def int8_flash(q, k, v, block_k: int = 3584) -> torch.Tensor:
     """Int8 flash forward on ``[B, S, H, D]`` (bf16 or f32 in, bf16 out)."""
     if all(t.device.type == "cpu" for t in (q, k, v)):
@@ -146,17 +194,7 @@ def int8_flash(q, k, v, block_k: int = 3584) -> torch.Tensor:
     if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must share bf16 or f32, got {[t.dtype for t in (q, k, v)]}")
     q8, k8, v8, sq, sk, va, bk = quantize_qkv(q, k, v, block_k)
-    BH, Sk, D = k8.shape
-    S = q.shape[1]
-    if BH > 65535:
-        raise ValueError(f"unsupported shape {tuple(q.shape)}")
-    # four consecutive keys of one channel in one 32-bit word: [BH, Sk/4, D, 4]
-    v8p = v8.view(BH, Sk // 4, 4, D).transpose(2, 3).contiguous()
-    q8, k8 = q8.contiguous(), k8.contiguous()
-    out = torch.empty(BH, S, D, dtype=torch.bfloat16, device=q.device)
-    launch_kernel("int8_flash_fwd", q, q8.data_ptr(), k8.data_ptr(), v8p.data_ptr(),
-                  sq.data_ptr(), sk.data_ptr(), out.data_ptr(), BH, S, Sk, bk)
-    int8_flash.launches += 1
+    out = int8_attention(q8, k8, value_layout(v8), sq, sk, q.shape[1], bk)
     return _descale(out, va, q.shape)
 
 

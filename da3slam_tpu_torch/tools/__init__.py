@@ -5,9 +5,9 @@ drive a hand-written kernel (``probe_conv3x3``, ``flash_nomax_probe``,
 ``--device cpu`` is given, and prints one line per case: the kernel's time
 over repeated launches, its rate, and its max abs error against the plain
 version.  ``main(argv)`` also returns the cases as a list of dicts.
-``flash_fwd_stages``, ``flash_bwd_stages`` and ``conv3x3_stages`` have no JAX
-counterpart: they build a kernel's source as it stands and in changed copies
-and time the builds in turns (CUDA only)."""
+``flash_fwd_stages``, ``flash_bwd_stages``, ``conv3x3_stages`` and
+``int8_flash_stages`` have no JAX counterpart: they build a kernel's source as
+it stands and in changed copies and time the builds in turns (CUDA only)."""
 
 from __future__ import annotations
 

@@ -9,8 +9,11 @@ exact in both, so the two differ where ``exp2`` does: a p8 at a rounding
 boundary can tip by one count of 127 (of ~10^3-10^4 counts in a row's sum),
 and the bf16 output by its last bit.  Tolerance: 2^-6·max|O|, as for the
 other forwards (two to four bf16 ulps of the largest output), and at least
-99% of the elements bit-equal.  CUDA cases (marker ``cuda``, skipped without
-a card) hold the hand-written kernel to the plain version:
+99% of the elements bit-equal.  ``TestKernelLayout`` models on the CPU what
+the s8 ``wgmma`` kernel's design rests on (the permuted Vᵀ, the fragment
+pairing, the exact conversions).  CUDA cases (marker ``cuda``, skipped
+without a card) hold the hand-written kernel to the plain version, at
+``block_k`` 64 and 192 among others (blocks of one and three 64-key tiles):
 
     python -m pytest --noconftest -m cuda tests/test_torch_int8_flash.py
 """
@@ -23,10 +26,15 @@ import pytest
 import torch
 
 from da3slam_tpu_torch.ops.int8_flash import (
+    _descale,
     effective_block_k,
+    int8_attention,
+    int8_attention_reference,
     int8_flash,
     int8_flash_reference,
     quantize_qkv,
+    value_layout,
+    values_from_layout,
 )
 from da3slam_tpu_torch.tools import int8_flash_probe as port_tool
 
@@ -189,11 +197,148 @@ class TestWrapper:
             with pytest.raises(RuntimeError, match="CUDA is not available"):
                 port_tool.main(["--check"])
 
+    def test_smoke_bound_is_the_exp2_floor(self):
+        """chip_smoke.py's bound for the kernel's function: at the tool's shape
+        the B·H·S² exp2 (0.673 ms) and not the int8 products (0.336 ms);
+        at a small shape the bytes."""
+        import chip_smoke
+
+        r = chip_smoke.int8_roofline(1, 20816, 6, D)
+        assert (r["bound_by"], r["bound_op"]) == ("operations", "exp2")
+        assert r["bound_ms"] == pytest.approx(6 * 20816 ** 2 / (989e12 / 256) * 1e3)
+        assert r["bound_ms"] == pytest.approx(0.67296, abs=1e-5)
+        assert r["bound_ms_ops"] == pytest.approx(0.33631, abs=1e-5)
+        small = chip_smoke.int8_roofline(2, 300, 3, D)
+        assert small["bound_by"] == "bytes" and small["bound_ms"] > small["exp2_floor_ms"]
+
     def test_tool_check_case(self, capsys):
         (row,) = port_tool.main(["--check", "--device", "cpu"])
         assert (row["S"], row["H"], row["block_k"]) == (1500, 2, 512)
         assert row["softmax_rel_err"] < SOFTMAX_REL_TOL
         assert "check OK" in capsys.readouterr().out
+
+
+class TestKernelLayout:
+    """What the s8 ``wgmma`` kernel's design rests on, modelled on the CPU: the
+    permuted Vᵀ, the pairing of score accumulators with P·V's A fragments, and
+    the exact full-rate forms of its two conversions."""
+
+    def test_value_layout_undone_gives_v8_back(self):
+        rng = np.random.default_rng(12)
+        v8 = torch.from_numpy(rng.integers(-127, 128, (3, 192, D)).astype(np.int8))
+        vt = value_layout(v8)
+        assert vt.shape == (3, D, 192) and vt.is_contiguous()
+        assert torch.equal(values_from_layout(vt), v8)
+        for pos in range(192):
+            g, r = divmod(pos, 16)
+            c, i = divmod(r, 4)
+            assert torch.equal(vt[:, :, pos], v8[:, 16 * g + 2 * c + (i & 1) + 8 * (i >> 1)])
+
+    def test_fragments_pair_scores_with_permuted_values(self):
+        """One 64-key tile: each thread's s32 accumulator elements (d[4j + 2h
+        + e] = S[16w + lane/4 + 8h, 8j + 2c + e]) packed into P·V's A registers
+        as the kernel's ``tile_p8`` packs them, placed where the ISA's s8 A
+        fragment puts them (register 4kk + r, byte i: row 16w + lane/4 +
+        8(r & 1), inner index 32kk + 16(r >> 1) + 4c + i), times the permuted
+        Vᵀ, is P·V."""
+        rng = np.random.default_rng(13)
+        P = rng.integers(0, 128, (64, 64))
+        V = rng.integers(-127, 128, (64, D))
+        vt = value_layout(torch.from_numpy(V[None].astype(np.int8)))[0].numpy().astype(np.int64)
+        A = np.full((64, 64), -1, dtype=np.int64)
+        for w in range(4):
+            for lane in range(32):
+                c, row = lane % 4, 16 * w + lane // 4
+                d = {4 * j + 2 * h + e: P[row + 8 * h, 8 * j + 2 * c + e]
+                     for j in range(8) for h in range(2) for e in range(2)}
+                for kk in range(2):
+                    for r in range(4):
+                        h, j = r & 1, 4 * kk + 2 * (r >> 1)
+                        packed = [d[4 * j + 2 * h], d[4 * j + 2 * h + 1],
+                                  d[4 * j + 4 + 2 * h], d[4 * j + 4 + 2 * h + 1]]
+                        for i in range(4):
+                            A[row + 8 * h, 32 * kk + 16 * (r >> 1) + 4 * c + i] = packed[i]
+        assert (A >= 0).all()  # every position written once per row
+        np.testing.assert_array_equal(A @ vt.T, P @ V)
+
+    @pytest.mark.parametrize("B,S,H,block_k,dtype", [
+        (1, 300, 2, 128, torch.float32), (2, 700, 3, 192, torch.bfloat16),
+        (1, 1, 2, 64, torch.float32),
+    ])
+    def test_wrapper_on_the_permuted_layout_is_the_plain_version(self, B, S, H, block_k, dtype):
+        q, k, v = inputs(S + 1, S, H, dtype, B=B)
+        q8, k8, v8, sq, sk, va, bk = quantize_qkv(q, k, v, block_k)
+        before = int8_flash.launches
+        out = int8_attention(q8, k8, value_layout(v8), sq, sk, S, bk)
+        assert int8_flash.launches == before
+        assert torch.equal(out, int8_attention_reference(q8, k8, v8, sq, sk, S, bk))
+        assert torch.equal(_descale(out, va, q.shape), int8_flash_reference(q, k, v, block_k))
+
+    def test_exact_int_to_float_over_the_score_range(self):
+        """float(s) = as_float(s + 0x4B400000) − 12582912 for every score an
+        int8 dot of 64 can give (|s| ≤ 127²·64 < 2^22)."""
+        top = 127 * 127 * D
+        assert top < 2 ** 22
+        s = np.arange(-top, top + 1, dtype=np.int32)
+        f = (s + np.int32(0x4B400000)).view(np.float32) - np.float32(12582912.0)
+        np.testing.assert_array_equal(f, s.astype(np.float32))
+
+    def test_exact_truncation_of_p(self):
+        """trunc(x) is the low byte of round_toward_zero(x + 2^23) for x in
+        [0.5, 127.5]: every float within 64 ulps of each integer and each
+        half, and 10^5 random ones (round toward zero emulated from the exact
+        sum in f64)."""
+        rng = np.random.default_rng(14)
+        base = np.concatenate([np.arange(0, 128, 0.5, dtype=np.float32),
+                               rng.uniform(0.5, 127.5, 100_000).astype(np.float32)])
+        xs = [base]
+        for _ in range(64):
+            xs.append(np.nextafter(xs[-1], np.float32(np.inf)))
+        down = [base]
+        for _ in range(64):
+            down.append(np.nextafter(down[-1], np.float32(0)))
+        x = np.concatenate(xs + down)
+        x = x[(x >= 0.5) & (x <= 127.5)]
+        exact = x.astype(np.float64) + 2.0 ** 23
+        rn = exact.astype(np.float32)
+        rz = np.where(rn.astype(np.float64) > exact, np.nextafter(rn, np.float32(0)), rn)
+        np.testing.assert_array_equal(rz.view(np.int32) & 0xFF, np.trunc(x).astype(np.int32))
+
+
+class TestStageTool:
+    """tools/int8_flash_stages.py builds copies of the kernel's source with
+    ``-D`` defines; here only what needs no card."""
+
+    def test_variants_set_macros_the_source_tests(self):
+        from da3slam_tpu_torch.ops import flash_attention as fa
+        from da3slam_tpu_torch.tools import int8_flash_stages as tool
+
+        text = (fa._CSRC / tool.SOURCE).read_text()
+        assert tool.VARIANTS["as_built"] == ()
+        for name, defines in tool.VARIANTS.items():
+            for define in defines:
+                macro = define.split("=")[0]
+                forms = ("#ifdef ", "#ifndef ", "defined(")
+                assert any(f"{form}{macro}" in text for form in forms), (name, macro)
+        # the library's build sets none of them: a macro with a value has a
+        # default under its own #ifndef
+        lines = text.splitlines()
+        defaults = {}
+        for i, ln in enumerate(lines):
+            if ln.startswith("#define INT8_FLASH_"):
+                name, value = ln.split()[1:3]
+                assert lines[i - 1] == f"#ifndef {name}"
+                defaults[name] = value
+        assert defaults == {"INT8_FLASH_CONSUMERS": "3", "INT8_FLASH_RING_BYTES": "131072"}
+        assert set(tool.EXACT) <= set(tool.VARIANTS)
+
+    def test_refuses_to_run_without_a_card(self):
+        from da3slam_tpu_torch.tools import int8_flash_stages as tool
+
+        if torch.cuda.is_available():
+            pytest.skip("a CUDA device is present")
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            tool.main([])
 
 
 @pytest.fixture
@@ -205,9 +350,15 @@ def card():
 
 @pytest.mark.cuda
 class TestKernelOnCard:
+    # block_k 64 and 192: tiles that must not straddle a block; S = 1, 65,
+    # 129 around the kernel's 64-row warpgroups and 64-key tiles; B·H > 1
+    # with a ragged last block
     @pytest.mark.parametrize("B,S,H,block_k,dtype", [
         (1, 1500, 2, 512, torch.float32), (2, 300, 3, 128, torch.bfloat16),
         (1, 63, 2, 64, torch.float32), (1, 1536, 2, 512, torch.bfloat16),
+        (1, 1000, 2, 64, torch.bfloat16), (2, 700, 3, 192, torch.float32),
+        (1, 1, 2, 64, torch.bfloat16), (1, 65, 2, 512, torch.float32),
+        (1, 129, 2, 512, torch.bfloat16), (3, 1000, 2, 384, torch.bfloat16),
     ])
     def test_kernel_matches_plain(self, card, B, S, H, block_k, dtype):
         q, k, v = (t.to(card) for t in inputs(S, S, H, dtype, B=B))
@@ -219,10 +370,24 @@ class TestKernelOnCard:
         tol = BF16_REL_TOL * ref.float().abs().max().item()
         assert torch.isfinite(o).all()
         assert (o.float() - ref.float()).abs().max().item() <= tol
+        assert (o == ref).float().mean().item() >= 0.99
         bk = effective_block_k(S, block_k)
         last = (-(-S // bk) - 1) * bk
         cut = int8_flash_reference(q, k, v, block_k, drop=(last, last + bk))
         assert (cut.float() - ref.float()).abs().max().item() > tol
+
+    def test_quantized_entry_launches_once(self, card):
+        q, k, v = (t.to(card) for t in inputs(10, 700, 3, torch.bfloat16, B=2))
+        q8, k8, v8, sq, sk, va, bk = quantize_qkv(q, k, v, 192)
+        before = int8_flash.launches
+        out = int8_attention(q8, k8, value_layout(v8), sq, sk, 700, bk)
+        torch.cuda.synchronize()
+        assert int8_flash.launches == before + 1
+        ref = int8_attention_reference(q8, k8, v8, sq, sk, 700, bk)
+        assert (out.float() - ref.float()).abs().max().item() <= \
+            BF16_REL_TOL * ref.float().abs().max().item()
+        with pytest.raises(ValueError, match="do not fit"):
+            int8_attention(q8, k8, v8, sq, sk, 700, bk)
 
     def test_refuses_what_the_kernel_does_not_take(self, card):
         q, k, v = (t.to(card) for t in inputs(9, 64, 2, torch.float32))
