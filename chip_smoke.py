@@ -78,8 +78,20 @@ final line:
     36 bound-forward launches each, and held to phase 16's ``main_slam``
     trajectory (ICP, device-resident); then a ``torch.profiler`` split of one
     warm SMALL chunk
+19. loop_closure: ``optimize_sim3_pose_graph`` (dense and CG) and the
+    loop-on ``SLAMSolver`` over the 48-frame synthetic loop (revisits as
+    first seen, and under a gamma drift), on the card against the same runs
+    on the CPU: accepted edges, ATE on below ATE off, poses, host waits
+20. main_slam_loop: ``cli/main_slam`` at SMALL with a ``Loop`` block over 72
+    frames that revisit themselves (36 and the same 36 reversed): 72 finite
+    poses, at least one joint re-inference, 12 bound-forward launches a chunk
+    and a joint re-inference, the gate's numbers, host waits
+21. streaming: ``cli/streaming`` at SMALL over the same 72 frames (chunks of
+    16, overlap 4) with ``Loop`` and the TUM/KITTI exports: finite poses and
+    merged cloud, launches as in 20 (the joint re-inference at S = 41632)
 
-Each driven path (7 twice, 8, 9, 13, 14, 15, 16, 18) sets every launch count to 0
+The forward phase (3) also holds the bound forward at that joint length.
+Each driven path (7 twice, 8, 9, 13, 14, 15, 16, 18, 20, 21) sets every launch count to 0
 just before it and reads them just after.  The ``kernels`` line gives each kernel's
 launches, error, time, plain version's time, roofline bound (from the shapes
 of this run, against the H100 SXM data sheet's peaks) and, where one PyTorch
@@ -315,6 +327,30 @@ EXPECTED_LAUNCHES = 12 * 3  # 12 encoder blocks x 3 chunks
 ALIGN_ARGS = ["--model", "large", "--method", "irls", "--chunk_size", "15", "--overlap", "1",
               "--headless"]
 ALIGN_EXPECTED_LAUNCHES = 24 * 3  # LARGE: 24 encoder blocks x 3 chunks
+# The loop paths read 36 generated frames and the same 36 in reverse: 72
+# frames whose second half revisits the first.  main_slam takes them in
+# chunks of 15 (overlap 1), the streaming CLI in its default chunks of 16
+# (overlap 4): six chunks each, 12 bound-forward launches a chunk (SMALL),
+# and 12 more for each joint re-inference over two chunks (30 and 32 frames:
+# S = 39030 and 41632).  Retrieval is loose enough that a revisit is always
+# found (the identical frames' learned descriptors); with random weights the
+# gate may reject the constraint, so acceptance is not required there.
+LOOP_FRAMES = 72
+LOOP_CHUNKS = 6
+LOOP_BLOCK = ("Loop: {enable: true, "
+              "Retrieval: {threshold: 0.5, min_gap: 30, max_loops: 1}}\n")
+# the bound forward at the streaming path's joint length (32 views of 1301)
+JOINT_CASES = [("joint_cross", torch.bfloat16, (1, 32 * 1301, 6, 64))]
+# card against CPU, the pose graph: the same LM sequence, LU / CG sums in
+# another order (tests/test_torch_loop.py holds the port to the JAX package
+# at 1e-5 dense, 1e-4 CG over 6-8 nodes; here dense over 16, CG over 6).
+# Both are held at convergence: a CG solve cut short (5 LM iterations of at
+# most 32 CG steps) left the card 1.7e-3 from the CPU, rounding that the
+# unconverged iterations amplify, not an error of the solution
+POSEGRAPH_TOL = {"dense": 1e-4, "cg": 1e-3}
+# card against CPU, the loop-on solver over the synthetic loop: the CPU
+# test's bound, 1e-4 of the scene extent
+LOOP_SOLVER_REL_TOL = 1e-4
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_VIEWS, TRAIN_HW = 5, 2, 4, 504
 TRAIN_ARGS = ["--preset", "small", "--mode", "dp", "--steps", str(TRAIN_STEPS),
               "--batch", str(TRAIN_BATCH), "--views", str(TRAIN_VIEWS),
@@ -657,8 +693,8 @@ def phase_forwards() -> dict:
     rows = {}
     for kernel, fwd, ref, cases in (
         ("flash_attn_bound_fwd", fa.flash_attention_bound, fa.flash_attention_bound_reference,
-         [(n, d, s, 1.0) for n, d, s in
-          KERNEL_CASES + LARGE_CASES + EDGE_CASES + F32_EDGE_CASES + F32_LONG_CASES]),
+         [(n, d, s, 1.0) for n, d, s in KERNEL_CASES + LARGE_CASES + JOINT_CASES
+          + EDGE_CASES + F32_EDGE_CASES + F32_LONG_CASES]),
         ("flash_attn_stable_fwd", fa.flash_attention_stable, fa.flash_attention_stable_reference,
          STABLE_CASES),
     ):
@@ -1575,9 +1611,10 @@ def _sync_warnings(caught) -> int:
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
-def _count_syncs(fn) -> int:
+def _count_syncs(fn, where: dict | None = None) -> int:
     """How many times ``fn`` made the host wait for the device, as
-    ``torch.cuda.set_sync_debug_mode`` reports it."""
+    ``torch.cuda.set_sync_debug_mode`` reports it; ``where`` (if given)
+    receives the count by the Python line each wait was reported at."""
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -1585,6 +1622,11 @@ def _count_syncs(fn) -> int:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
+    if where is not None:
+        for w in caught:
+            if "synchroniz" in str(w.message):
+                key = f"{Path(w.filename).name}:{w.lineno}"
+                where[key] = where.get(key, 0) + 1
     return _sync_warnings(caught)
 
 
@@ -1705,6 +1747,284 @@ def phase_main_slam_irls(path_launches: dict) -> dict:
             fail(f"main_slam {tag}: the final fetch made {r['split']['host_syncs']['fetch']} "
                  "transfers, not one")
     return runs
+
+
+def loop_frames_dir() -> Path:
+    """``make_frames(36)`` and the same frames in reverse: 72 518² PNGs."""
+    from PIL import Image
+
+    image_dir = WORK / "loop_frames"
+    if not image_dir.exists():
+        image_dir.mkdir(parents=True)
+        frames = make_frames(LOOP_FRAMES // 2, seed=2)
+        for i, f in enumerate(np.concatenate([frames, frames[::-1]])):
+            Image.fromarray(f).save(image_dir / f"{i:06d}.png", compress_level=1)
+    return image_dir
+
+
+def _pose_graph(K: int, seed: int, device: str):
+    """A chain of K Sim(3) nodes with drifted odometry (2% noise) and two
+    exact loop edges, made on the CPU from a seed and moved to ``device``:
+    (ground-truth nodes, initial nodes, edges)."""
+    from da3slam_tpu_torch.core.transforms import Sim3, sim3_compose, sim3_inverse, so3_exp
+    from da3slam_tpu_torch.ops.posegraph import add_loop_edges, sequential_edges
+
+    gen = np.random.default_rng(seed)
+
+    def rand(s_spread, t_spread, w_spread):
+        return Sim3(torch.tensor(float(np.exp(gen.normal() * s_spread))),
+                    so3_exp(torch.tensor(gen.normal(size=3) * w_spread, dtype=torch.float32)),
+                    torch.tensor(gen.normal(size=3) * t_spread, dtype=torch.float32))
+
+    nodes = [Sim3(torch.tensor(1.0), torch.eye(3), torch.zeros(3))]
+    for _ in range(K - 1):
+        nodes.append(sim3_compose(nodes[-1], rand(0.2, 0.5, 0.3)))
+    noisy = [sim3_compose(sim3_compose(sim3_inverse(nodes[k]), nodes[k + 1]),
+                          rand(0.02, 0.02, 0.02)) for k in range(K - 1)]
+    init = [nodes[0]]
+    for m in noisy:
+        init.append(sim3_compose(init[-1], m))
+
+    def dev(T):
+        return Sim3(*(x.to(device) for x in T))
+
+    def stack(Ts):
+        return Sim3(*(torch.stack(parts).to(device) for parts in zip(*Ts)))
+
+    loops = [(a, b, dev(sim3_compose(sim3_inverse(nodes[a]), nodes[b])))
+             for a, b in ((0, K - 1), (2, K // 2))]
+    edges = add_loop_edges(sequential_edges([dev(m) for m in noisy]), loops, weight=3.0)
+    return stack(nodes), stack(init), edges
+
+
+def loop_synthetic_config(enable: bool) -> dict:
+    """tests/test_torch_loop.py's live-solver configuration, device-resident."""
+    return {
+        "Model": {"chunk_size": 6, "overlap_size": 1, "keyframe_interval": 1,
+                  "sleep_between_chunk": 0, "device_resident": True},
+        "Loop": {"enable": enable, "stride": 2,
+                 "Retrieval": {"threshold": 0.9, "min_gap": 25, "max_loops": 5},
+                 "Gate": {"max_rmse": 0.08, "min_n_effective": 200, "max_reciprocal_err": 0.15},
+                 "SIM3_Optimizer": {"max_iterations": 30, "lambda_init": 1e-6}},
+    }
+
+
+def phase_loop_closure() -> None:
+    """The pose graph and the live solver's loop closure on the card, each
+    against the same run on the CPU.
+
+    ``optimize_sim3_pose_graph`` over a drifted chain with two exact loop
+    edges, 30 LM iterations: dense over 16 nodes, CG over 6 (each CG
+    iteration is a ``jvp`` and a ``vjp`` of the residual, many small
+    launches: the 16-node CG solve took 52 s on an H100):
+    the card's nodes against the CPU's (POSEGRAPH_TOL), the host's waits for
+    the device and the time.
+
+    ``SLAMSolver(device="cuda")`` over the 48-frame synthetic loop
+    (``utils/synthetic.py``, chunks of 6), closure off and on, twice: with
+    the revisits rendered as they were first seen, and with a gamma drift
+    over the sequence (``brightness_drift`` 0.35: a revisit is seen under
+    other light).  Each needs an accepted loop edge and ATE on below ATE off
+    (the ported ``evaluate_trajectory`` on the card).  Without the drift the
+    revisits' thumbnails tie at a similarity of 1, and which of the tied
+    pairs non-maximum suppression keeps follows the product's summation
+    order (on the CPU as in the JAX package): the card's edges are reported
+    beside the CPU's, not held to them.  With the drift there is no tie:
+    the card's edges must be the CPU's and its poses within
+    LOOP_SOLVER_REL_TOL of the scene extent of the CPU run's.  The host's
+    waits of each loop-on run are counted (the synthetic model's numpy
+    outputs are uploaded every chunk, which the loop-off run shows)."""
+    from da3slam_tpu_torch.ops.posegraph import optimize_sim3_pose_graph
+    from da3slam_tpu_torch.slam.evaluate import evaluate_trajectory
+    from da3slam_tpu_torch.slam.solver import SLAMSolver
+    from da3slam_tpu_torch.utils import synthetic
+
+    graphs = {}
+    for solver, nodes in (("dense", 16), ("cg", 6)):
+        out, syncs, secs = {}, {}, {}
+        for device in ("cpu", "cuda"):
+            gt, init, edges = _pose_graph(nodes, seed=5, device=device)
+            box = {}
+
+            def run(init=init, edges=edges, box=box, solver=solver):
+                box["out"] = optimize_sim3_pose_graph(init, edges, max_iterations=30,
+                                                      solver=solver)
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if device == "cuda":
+                syncs[device] = _count_syncs(run, where := {})
+            else:
+                run()
+            torch.cuda.synchronize()
+            secs[device] = time.perf_counter() - t0
+            out[device] = [x.cpu() for x in box["out"]]
+        err = max((a - b).abs().max().item() for a, b in zip(out["cuda"], out["cpu"]))
+        drift = {"init": (init.t[-1].cpu() - gt.t[-1].cpu()).norm().item(),
+                 "optimized": (out["cuda"][2][-1] - gt.t[-1].cpu()).norm().item()}
+        graphs[solver] = {"nodes": nodes, "max_abs_err_vs_cpu": err,
+                          "tol": POSEGRAPH_TOL[solver], "host_syncs_cuda": syncs["cuda"],
+                          "host_syncs_at": where,
+                          "s_cuda": secs["cuda"], "s_cpu": secs["cpu"], "last_node_drift": drift}
+        if not err <= POSEGRAPH_TOL[solver]:
+            fail(f"pose graph ({solver}): card and CPU differ by {err} > {POSEGRAPH_TOL[solver]}")
+        if not drift["optimized"] < 0.5 * drift["init"]:
+            fail(f"pose graph ({solver}): drift {drift} not corrected")
+
+    n = 48
+    poses = synthetic.make_loop_trajectory(n)
+    gt_c2w = np.stack([np.linalg.inv(np.vstack([E, [0, 0, 0, 1]])) for E in poses])
+    extent = float(np.abs(gt_c2w[:, :3, 3]).max())
+    image_dir = synthetic.make_synthetic_image_dir(WORK / "loop_synthetic", n)
+    rows = {}
+    for drift in (0.0, 0.35):
+        runs = {}
+        for device, enable in (("cpu", True), ("cuda", False), ("cuda", True)):
+            rng = np.random.default_rng(3)
+            model = synthetic.SyntheticDA3(poses, hw=(48, 64),
+                                           chunk_scales=rng.uniform(0.5, 2.0, size=24),
+                                           depth_noise=6e-3, textured=True, seed=7,
+                                           brightness_drift=drift)
+            solver = SLAMSolver(image_dir, loop_synthetic_config(enable), model=model,
+                                device=device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            syncs, where = None, {}
+            if device == "cuda":
+                syncs = _count_syncs(solver.run, where)
+            else:
+                solver.run()
+            torch.cuda.synchronize()
+            c2w = solver.trajectory()[0]
+            runs[device, enable] = {
+                "c2w": c2w, "s": time.perf_counter() - t0, "host_syncs": syncs, "where": where,
+                "chunks": len(solver.results), "loop_s": solver.timer.totals.get("loop"),
+                "edges": [(a, b) for a, b, _ in solver.loop_closer.loop_edges] if enable else [],
+                "ate": evaluate_trajectory(c2w, gt_c2w, align="sim3", device=device).ate_rmse}
+        on, off, cpu_on = runs["cuda", True], runs["cuda", False], runs["cpu", True]
+        pose_err = float(np.abs(on["c2w"] - cpu_on["c2w"]).max())
+        rows[drift] = {
+            "brightness_drift": drift, "frames": n, "chunks": on["chunks"], "edges": on["edges"],
+            "cpu_edges": cpu_on["edges"], "ate_on": on["ate"], "ate_off": off["ate"],
+            "cpu_ate_on": cpu_on["ate"], "max_abs_pose_err_vs_cpu": pose_err,
+            "tol": LOOP_SOLVER_REL_TOL * extent, "held_to_cpu": drift > 0,
+            "host_syncs_on": on["host_syncs"], "host_syncs_off": off["host_syncs"],
+            "host_syncs_on_per_chunk": on["host_syncs"] / on["chunks"],
+            "host_syncs_on_at": on["where"], "host_syncs_off_at": off["where"],
+            "loop_stage_s": on["loop_s"],
+            "s_on": on["s"], "s_off": off["s"], "s_cpu_on": cpu_on["s"]}
+    emit("loop_closure", pose_graph=graphs, solver=list(rows.values()))
+    for drift, row in rows.items():
+        if not row["edges"] or not row["ate_on"] < row["ate_off"]:
+            fail(f"loop closure (drift {drift}): edges {row['edges']}, ATE on {row['ate_on']} "
+                 f"against off {row['ate_off']}")
+        if row["held_to_cpu"] and (row["edges"] != row["cpu_edges"]
+                                   or not row["max_abs_pose_err_vs_cpu"] <= row["tol"]):
+            fail(f"loop closure (drift {drift}): card edges {row['edges']} against the CPU's "
+                 f"{row['cpu_edges']}, poses differ by {row['max_abs_pose_err_vs_cpu']}")
+
+
+def _attempts(rows) -> list[dict]:
+    """(a, b, similarity, LoopConstraint, accepted) → JSON-ready rows."""
+    return [{"chunks": [a, b], "similarity": sim, "rmse": lc.rmse,
+             "n_effective": lc.n_effective, "reciprocal_err": lc.reciprocal_err,
+             "accepted": accepted} for a, b, sim, lc, accepted in rows]
+
+
+def phase_main_slam_loop(path_launches: dict) -> None:
+    """``cli/main_slam`` at SMALL with a ``Loop`` block, device-resident, over
+    the 72 revisiting frames (chunks of 15): 72 finite poses, at least one
+    joint re-inference, 12 bound-forward launches a chunk and a joint
+    re-inference; the similarity and gate numbers of each constraint, frames/s
+    (building SMALL included), the host's waits and peak memory."""
+    from da3slam_tpu_torch.cli import main_slam
+
+    image_dir = loop_frames_dir()
+    cfg = WORK / "slam_loop.yaml"
+    cfg.write_text("Weights: {DA3: small}\n"
+                   "Model: {chunk_size: 15, overlap_size: 1, keyframe_interval: 1, "
+                   "device_resident: true}\n" + LOOP_BLOCK)
+    out_dir = WORK / "out_loop"
+    box = {}
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    with counted(path_launches, "main_slam_loop"):
+        t0 = time.perf_counter()
+        syncs = _count_syncs(lambda: box.setdefault("solver", main_slam.main(
+            ["--image_dir", str(image_dir), "--config", str(cfg),
+             "--output_dir", str(out_dir), "--headless"])), where := {})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    closer = box["solver"].loop_closer
+    attempts = _attempts(closer.attempts)
+    launches = path_launches["main_slam_loop"]
+    expected = expected_launches(flash_attn_bound_fwd=12 * (LOOP_CHUNKS + len(attempts)))
+    poses = np.loadtxt(out_dir / "camera_poses.txt", ndmin=2)
+    emit("main_slam_loop", frames=LOOP_FRAMES, chunks=len(box["solver"].results),
+         joint_reinferences=len(attempts), joint_views=30, joint_seq_len=30 * 1301,
+         attempts=attempts, accepted_edges=[[a, b] for a, b, _ in closer.loop_edges],
+         wall_s=wall, frames_per_s=LOOP_FRAMES / wall,
+         wall_includes="building SMALL on the CPU, its upload, PNG decode, export",
+         host_syncs=syncs, host_syncs_at=where, timer_s=box["solver"].timer.totals,
+         max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+         poses_shape=list(poses.shape), poses_finite=bool(np.isfinite(poses).all()),
+         kernel_launches=launches, expected_launches=expected)
+    if poses.shape != (LOOP_FRAMES, 16) or not np.isfinite(poses).all():
+        fail(f"main_slam_loop: poses {poses.shape}, finite={np.isfinite(poses).all()}")
+    if not attempts:
+        fail("main_slam_loop: no joint re-inference ran")
+    if launches != expected:
+        fail(f"main_slam_loop: launches {launches} != {expected}")
+
+
+def phase_streaming(path_launches: dict) -> None:
+    """``cli/streaming`` at SMALL over the 72 revisiting frames with the CLI's
+    default chunks (16, overlap 4: six chunks, the last re-anchored on
+    (56, 72)), a ``Loop`` block and ``--traj_formats tum,kitti``: 72 finite
+    poses in each trajectory file, a finite ``combined_pcd.ply``, at least one
+    joint re-inference (S = 41632), 12 bound-forward launches a chunk and a
+    joint re-inference; frames/s (building SMALL included) and peak memory."""
+    from da3slam_tpu_torch.cli import streaming
+    from da3slam_tpu_torch.inout.ply import read_ply as port_read_ply
+
+    image_dir = loop_frames_dir()
+    cfg = WORK / "stream_loop.yaml"
+    cfg.write_text("Weights: {DA3: small}\n" + LOOP_BLOCK)
+    out_dir = WORK / "stream_out"
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    with counted(path_launches, "streaming"):
+        t0 = time.perf_counter()
+        run = streaming.main(["--image_dir", str(image_dir), "--config", str(cfg),
+                              "--output_dir", str(out_dir), "--traj_formats", "tum,kitti"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    attempts = _attempts(run.loop_attempts)
+    launches = path_launches["streaming"]
+    expected = expected_launches(flash_attn_bound_fwd=12 * (LOOP_CHUNKS + len(attempts)))
+    files = {name: np.loadtxt(out_dir / name, ndmin=2) for name in
+             ("camera_poses.txt", "camera_poses_tum.txt", "camera_poses_kitti.txt")}
+    pts, cols = port_read_ply(out_dir / "combined_pcd.ply")
+    emit("streaming", frames=LOOP_FRAMES, chunk_ranges=run.chunk_ranges,
+         joint_reinferences=len(attempts), joint_views=32, joint_seq_len=32 * 1301,
+         attempts=attempts, accepted_edges=[[a, b] for a, b, _ in run.loop_edges],
+         wall_s=wall, frames_per_s=LOOP_FRAMES / wall,
+         wall_includes="building SMALL on the CPU, its upload, PNG decode, spills, PLYs",
+         max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+         poses_shapes={k: list(v.shape) for k, v in files.items()},
+         ply_points=int(len(pts)), ply_finite=bool(np.isfinite(pts).all()),
+         pose_filled=run.n_pose_filled, kernel_launches=launches, expected_launches=expected)
+    for name, rows in files.items():
+        if rows.shape[0] != LOOP_FRAMES or not np.isfinite(rows).all():
+            fail(f"streaming: {name} {rows.shape}, finite={np.isfinite(rows).all()}")
+    if len(pts) == 0 or not np.isfinite(pts).all() or cols is None:
+        fail(f"streaming: combined_pcd.ply with {len(pts)} points, finite={np.isfinite(pts).all()}")
+    if len(run.chunk_ranges) != LOOP_CHUNKS or run.chunk_ranges[-1] != (56, 72):
+        fail(f"streaming: chunks {run.chunk_ranges}")
+    if not attempts:
+        fail("streaming: no joint re-inference ran")
+    if launches != expected:
+        fail(f"streaming: launches {launches} != {expected}")
 
 
 def phase_checkpoint() -> None:
@@ -1846,6 +2166,9 @@ def main() -> None:
     slam_runs = phase_main_slam_irls(path_launches)
     phase_checkpoint()
     phase_pipeline(path_launches, slam_runs)
+    phase_loop_closure()
+    phase_main_slam_loop(path_launches)
+    phase_streaming(path_launches)
     kernels = []
     for name, (source, replaces, headline) in SOURCES.items():
         by_path = {path: counts[name] for path, counts in path_launches.items()}

@@ -4,7 +4,8 @@
 
 Same flags as the JAX package's CLI, plus ``--device`` (default ``cuda``).
 The run happens on that device or not at all: there is no fallback to the
-CPU.  The viewer is not ported, so ``--headless`` is required.
+CPU.  The viewer is not ported, so ``--headless`` is required.  A config
+with ``Loop.enable: true`` turns on online loop closure.
 """
 
 from __future__ import annotations
@@ -31,7 +32,9 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv=None) -> None:
+def main(argv=None):
+    """Run the CLI; returns the ``SLAMSolver`` that ran (for callers that
+    read its state, such as the loop closer's attempts)."""
     args = build_parser().parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -50,6 +53,7 @@ def main(argv=None) -> None:
         poses, intrs = solver.trajectory()
         save_camera_poses(args.output_dir, poses, intrs)
         print(f"Trajectory ({len(poses)} frames) exported to {args.output_dir}")
+    return solver
 
 
 if __name__ == "__main__":

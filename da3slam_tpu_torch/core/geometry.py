@@ -1,5 +1,6 @@
 """Pinhole camera geometry: backprojection and the depth-scale median
-(counterpart of ``da3slam_tpu/core/geometry.py``).
+(counterpart of ``da3slam_tpu/core/geometry.py``), and the median as numpy
+and JAX define it.
 
 Pixel convention: ``u`` is the column index, ``v`` the row index, rays are
 ``K^-1 @ [u, v, 1]`` (no half-pixel offset).
@@ -85,3 +86,11 @@ def depth_scale_ratio(
     med = 0.5 * (mid[0] + mid[1])
     ok = (n_valid >= min_points) & torch.isfinite(med) & (med > 0)
     return torch.where(ok, med, torch.ones_like(med))
+
+
+def median(x: torch.Tensor) -> torch.Tensor:
+    """Median of all elements, as ``jnp.median`` takes it: for an even count
+    the mean of the two middle values (``torch.median`` returns the lower)."""
+    s = torch.sort(x.reshape(-1)).values
+    n = s.shape[0]
+    return 0.5 * (s[(n - 1) // 2] + s[n // 2])

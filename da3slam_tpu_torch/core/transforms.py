@@ -1,5 +1,6 @@
 """SE(3) / Sim(3) transform algebra on batched torch tensors (counterpart of
-``da3slam_tpu/core/transforms.py``; the subset the SLAM main path uses).
+``da3slam_tpu/core/transforms.py``; the subset the SLAM, loop-closure and
+streaming paths use).
 
 Conventions:
   * extrinsics are world-to-camera (w2c) ``[..., 3, 4]`` in OpenCV convention
@@ -111,6 +112,87 @@ def sim3_inverse(T: Sim3) -> Sim3:
     Rt = T.R.transpose(-1, -2)
     t_inv = -s_inv[..., None] * (Rt @ T.t[..., None])[..., 0]
     return Sim3(s_inv, Rt, t_inv)
+
+
+def sim3_identity(dtype=torch.float32, device=None) -> Sim3:
+    return Sim3(torch.ones((), dtype=dtype, device=device),
+                torch.eye(3, dtype=dtype, device=device),
+                torch.zeros(3, dtype=dtype, device=device))
+
+
+def sim3_apply(T: Sim3, points: torch.Tensor) -> torch.Tensor:
+    """Apply ``p' = s * R p + t`` to ``[..., N, 3]`` points (an unbatched Sim3
+    takes any leading shape; a batched one needs matching leading dims)."""
+    rotated = points @ T.R.transpose(-1, -2)
+    return T.s[..., None, None] * rotated + T.t[..., None, :]
+
+
+def sim3_accumulate(transforms: Sim3) -> Sim3:
+    """Prefix-compose a stacked ``[K]`` Sim3 whose entry k maps chunk k+1 into
+    chunk k; entry k of the ``[K+1]`` result maps chunk k into chunk 0 (entry 0
+    the identity).  A sequential prefix product: the JAX package's
+    ``associative_scan`` composes the same products in a tree order, which
+    differs in f32 rounding only."""
+    acc = [sim3_identity(transforms.R.dtype, transforms.R.device)]
+    for k in range(transforms.s.shape[0]):
+        acc.append(sim3_compose(acc[-1], Sim3(transforms.s[k], transforms.R[k], transforms.t[k])))
+    return Sim3(*(torch.stack(parts) for parts in zip(*acc)))
+
+
+def sim3_to_matrix(T: Sim3) -> torch.Tensor:
+    """``[..., 4, 4]`` matrix with upper-left ``s*R`` and translation ``t``."""
+    top = torch.cat([T.s[..., None, None] * T.R, T.t[..., None]], dim=-1)
+    return se3_to_4x4(top)
+
+
+def sim3_transform_w2c(E: torch.Tensor, T: Sim3) -> torch.Tensor:
+    """Re-express w2c extrinsics ``[..., 3|4, 4]`` under a Sim(3) change of
+    world frame (``T`` maps current world coordinates into reference ones):
+    ``w2c_ref = w2c_cur @ [(1/s) R^T | -(1/s) R^T t]``, as ``[..., 3, 4]``."""
+    Tinv = sim3_inverse(T)
+    M = torch.cat([Tinv.s[..., None, None] * Tinv.R, Tinv.t[..., None]], dim=-1)
+    E44 = se3_to_4x4(E) if E.shape[-2] == 3 else E
+    return (E44 @ se3_to_4x4(M))[..., :3, :4]
+
+
+def _skew(w: torch.Tensor) -> torch.Tensor:
+    """``[..., 3]`` → the cross-product matrix ``[..., 3, 3]``."""
+    x, y, z = w.unbind(-1)
+    zeros = torch.zeros_like(x)
+    return torch.stack([torch.stack([zeros, -z, y], -1),
+                        torch.stack([z, zeros, -x], -1),
+                        torch.stack([-y, x, zeros], -1)], dim=-2)
+
+
+def so3_exp(omega: torch.Tensor) -> torch.Tensor:
+    """Rotation vector ``[..., 3]`` → rotation matrix (Rodrigues), with the
+    first-order form ``I + [ω]×`` below 1e-6 rad."""
+    theta = torch.linalg.vector_norm(omega, dim=-1, keepdim=True)
+    small = theta < 1e-6
+    K = _skew(omega / torch.where(small, torch.ones_like(theta), theta))
+    th = theta[..., None]
+    eye = torch.eye(3, dtype=omega.dtype, device=omega.device).expand(K.shape)
+    R_full = eye + torch.sin(th) * K + (1 - torch.cos(th)) * (K @ K)
+    return torch.where(small[..., None], eye + _skew(omega), R_full)
+
+
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix → rotation vector ``[..., 3]`` of angle in [0, π].
+
+    Double ``where``: near the identity ``arccos`` is fed a safe 0, so the
+    derivative of the discarded branch (-1/√(1-x²) = -inf at x = 1) never
+    meets a zero cotangent (0 · inf = NaN) under ``jacfwd`` or autograd."""
+    tr = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    cos_theta = torch.clamp((tr - 1) / 2, -1.0, 1.0)
+    # θ ≲ 4.5e-4; the threshold must be representable in f32
+    small = cos_theta > 1.0 - 1e-7
+    theta = torch.arccos(torch.where(small, torch.zeros_like(cos_theta), cos_theta))
+    vee = torch.stack([R[..., 2, 1] - R[..., 1, 2],
+                       R[..., 0, 2] - R[..., 2, 0],
+                       R[..., 1, 0] - R[..., 0, 1]], dim=-1)
+    factor = torch.where(small, torch.full_like(theta, 0.5),
+                         theta / torch.clamp_min(2 * torch.sin(theta), 1e-12))
+    return factor[..., None] * vee
 
 
 def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:

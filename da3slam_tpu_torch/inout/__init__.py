@@ -6,5 +6,9 @@ from da3slam_tpu_torch.inout.images import (  # noqa: F401
     extract_keyframes,
     load_image_paths,
 )
-from da3slam_tpu_torch.inout.ply import write_ply  # noqa: F401
-from da3slam_tpu_torch.inout.trajectory import save_camera_poses  # noqa: F401
+from da3slam_tpu_torch.inout.ply import merge_ply_files, read_ply, write_ply  # noqa: F401
+from da3slam_tpu_torch.inout.trajectory import (  # noqa: F401
+    load_camera_poses,
+    load_trajectory,
+    save_camera_poses,
+)

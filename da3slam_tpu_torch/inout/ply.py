@@ -1,6 +1,7 @@
-"""PLY point-cloud export (counterpart of ``da3slam_tpu/inout/ply.py:write_ply``,
-numpy only): vertices with optional uint8 RGB colors, binary little-endian or
-ascii, the bytes the JAX package's writer produces."""
+"""PLY point-cloud I/O (counterpart of ``da3slam_tpu/inout/ply.py``, numpy
+only): vertices with optional uint8 RGB colors, binary little-endian or ascii,
+the bytes the JAX package's writer produces; the reader and the merge of a
+directory's files keep the JAX package's pure-Python path."""
 
 from __future__ import annotations
 
@@ -55,3 +56,47 @@ def write_ply(
                 if has_color:
                     row += f" {colors[i, 0]} {colors[i, 1]} {colors[i, 2]}"
                 f.write(row + "\n")
+
+
+def read_ply(path: str | Path) -> tuple[np.ndarray, np.ndarray | None]:
+    """Read a PLY written by :func:`write_ply` (and the common subset of
+    ascii/binary_little_endian vertex-only files)."""
+    with open(path, "rb") as f:
+        header_lines = []
+        while True:
+            line = f.readline().decode("ascii").strip()
+            header_lines.append(line)
+            if line == "end_header":
+                break
+        fmt = next(ln.split()[1] for ln in header_lines if ln.startswith("format"))
+        n = int(next(ln.split()[2] for ln in header_lines if ln.startswith("element vertex")))
+        names = [ln.split()[2] for ln in header_lines if ln.startswith("property")]
+        has_color = "red" in names
+
+        if fmt == "ascii":
+            data = np.loadtxt(f, max_rows=n).reshape(n, -1)
+            pts = data[:, :3].astype(np.float32)
+            cols = data[:, 3:6].astype(np.uint8) if has_color else None
+            return pts, cols
+
+        if has_color:
+            rec = np.frombuffer(f.read(n * 15), dtype=[("xyz", "<f4", 3), ("rgb", np.uint8, 3)],
+                                count=n)
+            return rec["xyz"].copy(), rec["rgb"].copy()
+        pts = np.frombuffer(f.read(n * 12), dtype="<f4", count=n * 3).reshape(n, 3)
+        return pts.copy(), None
+
+
+def merge_ply_files(input_dir: str | Path, output_path: str | Path) -> int:
+    """Concatenate every ``.ply`` under ``input_dir`` (sorted by name) into one
+    binary file, uncolored files in gray 200.  Returns the point count."""
+    all_pts, all_cols = [], []
+    for fp in sorted(Path(input_dir).glob("*.ply")):
+        pts, cols = read_ply(fp)
+        all_pts.append(pts)
+        all_cols.append(cols if cols is not None else np.full_like(pts, 200, dtype=np.uint8))
+    if not all_pts:
+        return 0
+    pts = np.concatenate(all_pts)
+    write_ply(output_path, pts, np.concatenate(all_cols))
+    return int(pts.shape[0])

@@ -6,8 +6,9 @@ with ``forward_fn`` underneath.  The network is one ``nn.Module`` whose
 state-dict names are the DA3/DINOv2 ones (``models/convert.py``).  The
 working dtype is bf16 on CUDA and f32 on the CPU.  ``from_pretrained`` takes
 a preset name or a checkpoint directory (``models/weights.py``);
-``quantize("w8a8")`` returns a copy whose encoder GEMMs run int8.  The nested
-tier, ``pytorch_model.bin`` files and export are not ported yet.
+``quantize("w8a8")`` returns a copy whose encoder GEMMs run int8.
+``inference(export_dir=...)`` writes the ``mini_npz`` export; the ``glb``
+export, the nested tier and ``pytorch_model.bin`` files are not ported yet.
 """
 
 from __future__ import annotations
@@ -195,6 +196,8 @@ class DepthAnything3:
         use_ray_pose: bool = False,
         extrinsics: np.ndarray | None = None,
         align_to_input_ext_scale: bool = False,
+        export_dir: str | Path | None = None,
+        export_format: str = "mini_npz",
         keep_on_device: bool = False,
     ) -> Prediction:
         """Reference-contract inference over one chunk of views.
@@ -202,10 +205,17 @@ class DepthAnything3:
         ``use_ray_pose=True`` recovers poses from the dense ray maps instead
         of the camera-token head.  ``keep_on_device=True`` returns every field as a tensor on the
         model's device and returns without waiting for the forward; otherwise
-        the fields are fetched to numpy.
+        the fields are fetched to numpy.  ``export_dir`` also writes the
+        prediction there in ``export_format``: ``"mini_npz"`` is
+        ``prediction.npz`` (depth, conf, extrinsics, intrinsics).
         """
         if process_res_method != "upper_bound_resize":
             raise ValueError(f"unsupported process_res_method {process_res_method!r}")
+        if export_dir is not None and export_format != "mini_npz":
+            if export_format == "glb":
+                raise NotImplementedError("the glb export is not ported yet (ROADMAP queue 1, "
+                                          "item 12): use export_format='mini_npz'")
+            raise ValueError(f"unknown export_format {export_format!r}")
         if isinstance(image, torch.Tensor):
             raw = image if image.ndim == 4 else image[None]
         else:
@@ -243,7 +253,14 @@ class DepthAnything3:
         }
         if not keep_on_device:
             fields = {k: v.cpu().numpy() for k, v in fields.items()}
-        return Prediction(**fields)
+        pred = Prediction(**fields)
+        if export_dir is not None:
+            out = Path(export_dir)
+            out.mkdir(parents=True, exist_ok=True)
+            np.savez_compressed(out / "prediction.npz", **{
+                k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+                for k, v in fields.items() if k in ("depth", "conf", "extrinsics", "intrinsics")})
+        return pred
 
 
 def _pose_scale_ratio(ext_target: torch.Tensor, ext_pred: torch.Tensor) -> torch.Tensor:

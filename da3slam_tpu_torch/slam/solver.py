@@ -17,8 +17,12 @@ device with a blocking copy (249 for SMALL).  Otherwise every chunk's
 prediction is fetched to numpy (and uploaded again for alignment), as the
 reference does: 50 waits over the same frames.
 
-Loop closure and the viewer are not ported: a config or argument that
-enables either is rejected.
+``Loop.enable`` adds online loop closure (``slam/online_loop.py``): each
+chunk is enrolled for retrieval, and a gated loop edge re-anchors the
+trajectory so far through the pose graph.  It consumes host poses and
+descriptors every chunk, so device-resident alignment then fetches them with
+the chunk's stats in one packed transfer a chunk.  The viewer is not ported:
+an argument that enables it is rejected.
 """
 
 from __future__ import annotations
@@ -36,14 +40,21 @@ from da3slam_tpu_torch.slam.alignment import AlignmentConfig, align_chunk_single
 from da3slam_tpu_torch.utils.profiling import StageTimer
 
 
+def fetch_packed(tensors: List[torch.Tensor]) -> List[np.ndarray]:
+    """Device tensors → numpy arrays in their own dtypes, in ONE device→host
+    transfer: they are packed into one f64 buffer on the device, and f64
+    holds every f32 (and every index below 2^53) exactly."""
+    packed = torch.cat([t.detach().reshape(-1).to(torch.float64) for t in tensors]).cpu()
+    return [part.reshape(t.shape).to(t.dtype).numpy()
+            for part, t in zip(packed.split([t.numel() for t in tensors]), tensors)]
+
+
 class SLAMSolver:
     def __init__(self, image_dir: str, config: dict, model: Any = None, viewer: Any = None,
                  device: str | torch.device = "cuda"):
         if viewer is not None:
             raise NotImplementedError("the viewer is not ported yet: pass viewer=None "
                                       "(main_slam --headless)")
-        if (config.get("Loop", {}) or {}).get("enable", False):
-            raise NotImplementedError("loop closure is not ported yet: set Loop.enable false")
         self.config = config
         self.device = torch.device(device)
         model_cfg = config.get("Model", {})
@@ -74,6 +85,18 @@ class SLAMSolver:
 
             self.prefetch = isinstance(self.model, DepthAnything3)
         self.viewer = None
+
+        # optional online loop closure (off by default; slam/online_loop.py)
+        self.loop_closer = None
+        loop_cfg = config.get("Loop", {}) or {}
+        if loop_cfg.get("enable", False):
+            from da3slam_tpu_torch.slam.online_loop import OnlineLoopCloser
+
+            self.loop_closer = OnlineLoopCloser(
+                self.model, loop_cfg,
+                inference_kwargs={"process_res_method": "upper_bound_resize"},
+                device=self.device,
+            )
         self.timer = StageTimer(sync=False)
 
     def _load_model(self):
@@ -147,12 +170,25 @@ class SLAMSolver:
             anchor_idx=anchor_idx,
         )
         if self.device_resident:
-            # nothing leaves the device: stats and poses are fetched once,
-            # at the end of run()
             cur["depth"] = out.depth_scaled
             self.prev_overlap_aligned_3x4 = out.prev_overlap_for_next
             cur["extrinsics_global"] = out.extrinsics_global
-            return out.depth_scale, out.transform.R, out.transform.t, out.fitness, out.inlier_rmse
+            if self.loop_closer is None:
+                # nothing leaves the device: stats and poses are fetched
+                # once, at the end of run()
+                return (out.depth_scale, out.transform.R, out.transform.t, out.fitness,
+                        out.inlier_rmse)
+            # loop closure consumes host poses, scale and descriptors every
+            # chunk: one packed transfer
+            fd = cur.get("frame_desc")
+            extra = [fd] if isinstance(fd, torch.Tensor) else []
+            eg, s, R, t, fitness, rmse, *fd = fetch_packed(
+                [out.extrinsics_global, out.depth_scale, out.transform.R, out.transform.t,
+                 out.fitness, out.inlier_rmse, *extra])
+            cur["extrinsics_global"] = eg
+            if fd:
+                cur["frame_desc"] = fd[0]
+            return float(s), R, t, float(fitness), float(rmse)
         cur["depth"] = out.depth_scaled.cpu().numpy()
         cur["extrinsics_global"] = out.extrinsics_global.cpu().numpy()
         self.prev_overlap_aligned_3x4 = out.prev_overlap_for_next.cpu().numpy()
@@ -181,6 +217,25 @@ class SLAMSolver:
             cur["extrinsics_global"] = np.asarray(ext).astype(np.float64)
             self.prev_overlap_aligned_3x4 = cur["extrinsics_global"][-1].astype(np.float32)
 
+    # -- online loop closure -------------------------------------------------
+    def _loop_stage(self, cur: Dict, new_start: int, depth_scale: float) -> None:
+        """Enroll the chunk, detect/gate loops, and on a new gated edge
+        re-anchor the whole trajectory so far from the optimised pose graph.
+        The carry (the previous overlap frame's global pose) is re-anchored
+        too, so every later chunk chains from the corrected trajectory."""
+        fd = cur.get("frame_desc")
+        if isinstance(fd, torch.Tensor):  # a first chunk's: not fetched with stats
+            fd = fd.cpu().numpy()
+        self.loop_closer.add_chunk(cur, new_start, frame_desc=fd, depth_scale=depth_scale)
+        updated = self.loop_closer.maybe_close([r["extrinsics_global"] for r in self.results])
+        if updated is None:
+            return
+        for r, E in zip(self.results, updated):
+            r["extrinsics_global"] = E
+        cur["extrinsics_global"] = updated[-1]
+        self.prev_overlap_aligned_3x4 = np.asarray(updated[-1][-1], np.float32)
+        print(f"  [loop] trajectory re-anchored over {len(updated)} chunks")
+
     # -- main loop ---------------------------------------------------------
     def process_frame(self, image_path: str) -> None:
         self.frame_buffer.append(image_path)
@@ -191,6 +246,7 @@ class SLAMSolver:
         with self.timer("inference"):
             cur = self.run_single_chunk_prediction(chunk_paths)
 
+        depth_scale = 1.0
         if self.chunk_count == 0:
             self._first_chunk_globals(cur)
         else:
@@ -199,6 +255,8 @@ class SLAMSolver:
                     self.prev_chunk_prediction, cur
                 )
             self._report(f"chunk {self.chunk_count}", s, fitness, rmse)
+            if isinstance(s, float):  # device scalars: no loop stage consumes them
+                depth_scale = s
 
         self.results.append({
             "chunk_idx": cur["chunk_idx"],
@@ -208,6 +266,9 @@ class SLAMSolver:
             # leading frames duplicated from the previous chunk
             "dedup_skip": 0 if self.chunk_count == 0 else self.overlap_size,
         })
+        if self.loop_closer is not None:
+            with self.timer("loop"):
+                self._loop_stage(cur, self.results[-1]["dedup_skip"], depth_scale)
         self.prev_chunk_prediction = cur
         self.update_buffer_after_chunk_processed()
         self.chunk_count += 1
@@ -224,6 +285,7 @@ class SLAMSolver:
         if n_new <= 0:
             return
 
+        depth_scale = 1.0
         if self.chunk_count == 0:
             # fewer frames than one chunk: run them all as chunk 0
             chunk_paths = list(image_paths)
@@ -241,6 +303,8 @@ class SLAMSolver:
                     self.prev_chunk_prediction, cur, anchor_idx=self.chunk_size - 1 - n_new
                 )
             self._report(f"tail chunk ({n_new} new frames)", s, fitness, rmse)
+            if isinstance(s, float):
+                depth_scale = s
             dedup_skip = self.chunk_size - n_new
 
         self.results.append({
@@ -250,25 +314,24 @@ class SLAMSolver:
             "intrinsics": cur["intrinsics"],
             "dedup_skip": dedup_skip,
         })
+        if self.loop_closer is not None:
+            with self.timer("loop"):
+                self._loop_stage(cur, dedup_skip, depth_scale)
         self.prev_chunk_prediction = cur
         self.frame_buffer.clear()
         self.chunk_count += 1
 
     def _materialize(self) -> None:
         """End of run (device-resident mode): every deferred stat and every
-        chunk's global poses and intrinsics in ONE device→host transfer.
-
-        They are packed into one f64 buffer on the device: f64 holds every f32
-        exactly, so each array comes back bit for bit in its own dtype."""
+        chunk's global poses and intrinsics in ONE device→host transfer
+        (``fetch_packed``: each array comes back bit for bit in its dtype)."""
         stats = [x.float() for _, s, f, r in self._deferred_stats for x in (s, f, r)]
         slots = [(r, key) for r in self.results for key in ("extrinsics_global", "intrinsics")
                  if isinstance(r[key], torch.Tensor)]
         tensors = stats + [r[key] for r, key in slots]
         if not tensors:
             return
-        packed = torch.cat([t.detach().reshape(-1).to(torch.float64) for t in tensors]).cpu()
-        parts = [part.reshape(t.shape).to(t.dtype).numpy()
-                 for part, t in zip(packed.split([t.numel() for t in tensors]), tensors)]
+        parts = fetch_packed(tensors)
         for i, (tag, *_) in enumerate(self._deferred_stats):
             s, f, r = (p.item() for p in parts[3 * i: 3 * i + 3])
             print(f"  {tag}: depth_scale={s:.4f} fitness={f:.4f} inlier_rmse={r:.5f}")

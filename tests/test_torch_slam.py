@@ -271,7 +271,11 @@ class TestAlignment:
 
 
 def ate_rmse(c2w_est, c2w_gt):
-    return float(np.sqrt(np.mean(np.sum((c2w_est[:, :3, 3] - c2w_gt[:, :3, 3]) ** 2, -1))))
+    """RMS of the camera-center errors, unaligned: the ported
+    ``evaluate_trajectory`` (held to the JAX one in test_torch_loop.py)."""
+    from da3slam_tpu_torch.slam.evaluate import evaluate_trajectory
+
+    return evaluate_trajectory(c2w_est, c2w_gt, align="none", device="cpu").ate_rmse
 
 
 def gt_c2w(poses_w2c):
@@ -409,12 +413,14 @@ class TestSolver:
         assert len(calls) == 1 and capsys.readouterr().out == ""
 
     def test_rejects_what_is_not_ported(self, tmp_path):
+        """The viewer is refused; loop closure is ported now, so a Loop block
+        builds the closer on the solver's device (test_torch_loop.py runs it)."""
         model = SyntheticDA3(make_trajectory(3))
         with pytest.raises(NotImplementedError, match="viewer"):
             SLAMSolver(str(tmp_path), self.CONFIG, model=model, viewer="auto", device="cpu")
-        with pytest.raises(NotImplementedError, match="loop closure"):
-            SLAMSolver(str(tmp_path), {**self.CONFIG, "Loop": {"enable": True}}, model=model,
-                       device="cpu")
+        solver = SLAMSolver(str(tmp_path), {**self.CONFIG, "Loop": {"enable": True}}, model=model,
+                            device="cpu")
+        assert solver.loop_closer is not None and solver.loop_closer.device.type == "cpu"
 
 
 class TestHostIO:
