@@ -87,12 +87,29 @@ final line:
     poses, at least one joint re-inference, 12 bound-forward launches a chunk
     and a joint re-inference, the gate's numbers, host waits
 21. streaming: ``cli/streaming`` at SMALL over the same 72 frames (chunks of
-    16, overlap 4) with ``Loop`` and the TUM/KITTI exports: finite poses and
-    merged cloud, launches as in 20 (the joint re-inference at S = 41632)
+    16, overlap 4) with ``Loop``, the TUM/KITTI exports and ``--mesh``: finite
+    poses, merged cloud and ``scene_mesh.ply`` (``save_mesh`` timed apart),
+    launches as in 20 (the joint re-inference at S = 41632); then
+    ``DA3Streaming``'s mesh on the card over the synthetic corner room, on its
+    planes, sparse and dense, against the same run on the CPU
+22. preprocess: ``cli/preprocess crop --dataset c3vd2`` and ``brightness``
+    over 31 generated frames at C3VD's 1080×1350; ``preprocess_batch`` over
+    16 of them to 504² timed (frames/s); card against CPU on two frames: the
+    uint8 outputs and the CLAHE bin flips
+23. tsdf: the 112-frame orbit in the closed box at 504² (``bench.py``'s TSDF
+    scene), resolution 192, fused dense, sparse and sparse with carve
+    (frames/s, active blocks and budget, host waits, peak memory); card
+    against CPU on a strided subset, the sparse grid against dense
+    ``band_only`` bit for bit, and the mesh on the box planes (marching
+    tetrahedra's host time apart)
+24. main_mesh: ``cli/main_mesh`` at SMALL (chunk 8, ``--process_res 504``)
+    over phase 22's frames, dense ``--color`` and ``--sparse``: a non-empty
+    finite mesh, 12 bound-forward launches a chunk, frames/s
 
-The forward phase (3) also holds the bound forward at that joint length.
-Each driven path (7 twice, 8, 9, 13, 14, 15, 16, 18, 20, 21) sets every launch count to 0
-just before it and reads them just after.  The ``kernels`` line gives each kernel's
+The forward phase (3) also holds the bound forward at that joint length and
+at main_mesh's chunk-8 cross length (S = 10408).
+Each driven path (7 twice, 8, 9, 13, 14, 15, 16, 18, 20, 21, 22, 23, 24 twice) sets
+every launch count to 0 just before it and reads them just after.  The ``kernels`` line gives each kernel's
 launches, error, time, plain version's time, roofline bound (from the shapes
 of this run, against the H100 SXM data sheet's peaks) and, where one PyTorch
 call computes the same function, that call's time (timed here, used nowhere
@@ -341,6 +358,24 @@ LOOP_BLOCK = ("Loop: {enable: true, "
               "Retrieval: {threshold: 0.5, min_gap: 30, max_loops: 1}}\n")
 # the bound forward at the streaming path's joint length (32 views of 1301)
 JOINT_CASES = [("joint_cross", torch.bfloat16, (1, 32 * 1301, 6, 64))]
+# main_mesh's chunk of 8 views: its cross-view blocks at S = 8 x 1301
+MESH_CHUNK = 8
+MESH_CASES = [("mesh_cross", torch.bfloat16, (1, MESH_CHUNK * 1301, 6, 64))]
+# 31 frames in chunks of 8, overlap 1: (0,8) (7,15) (14,22) (21,29) and the
+# re-anchored tail (23,31), 12 bound-forward launches each (SMALL)
+MESH_CHUNKS = 5
+# C3VD's frame size (H, W); the dense-mapping paths read 31 such frames
+C3VD_HW = (1080, 1350)
+# bench.py's TSDF scene: 112 orbit frames at 504² inside the closed box, a
+# 192-voxel grid, sparse batches of 16
+TSDF_FRAMES, TSDF_HW, TSDF_RES, TSDF_BATCH = 112, 504, 192, 16
+# card against CPU (the same eager ops in both): sdf and weight within 1e-5,
+# colour 1e-3, apart from voxels whose nearest pixel rounds otherwise, at
+# most this share of the grid (tests/test_torch_tsdf.py's bound)
+TSDF_TOL, TSDF_EDGE_SHARE = 1e-5, 0.01
+# CLAHE bin flips card against CPU: at most this share of the pixels or 2
+# (tests/test_torch_preprocess.py's bound); frames with none within 1 LSB
+PREPROCESS_FLIP_SHARE = 1e-5
 # card against CPU, the pose graph: the same LM sequence, LU / CG sums in
 # another order (tests/test_torch_loop.py holds the port to the JAX package
 # at 1e-5 dense, 1e-4 CG over 6-8 nodes; here dense over 16, CG over 6).
@@ -694,7 +729,7 @@ def phase_forwards() -> dict:
     for kernel, fwd, ref, cases in (
         ("flash_attn_bound_fwd", fa.flash_attention_bound, fa.flash_attention_bound_reference,
          [(n, d, s, 1.0) for n, d, s in KERNEL_CASES + LARGE_CASES + JOINT_CASES
-          + EDGE_CASES + F32_EDGE_CASES + F32_LONG_CASES]),
+          + MESH_CASES + EDGE_CASES + F32_EDGE_CASES + F32_LONG_CASES]),
         ("flash_attn_stable_fwd", fa.flash_attention_stable, fa.flash_attention_stable_reference,
          STABLE_CASES),
     ):
@@ -1980,36 +2015,62 @@ def phase_main_slam_loop(path_launches: dict) -> None:
 def phase_streaming(path_launches: dict) -> None:
     """``cli/streaming`` at SMALL over the 72 revisiting frames with the CLI's
     default chunks (16, overlap 4: six chunks, the last re-anchored on
-    (56, 72)), a ``Loop`` block and ``--traj_formats tum,kitti``: 72 finite
-    poses in each trajectory file, a finite ``combined_pcd.ply``, at least one
-    joint re-inference (S = 41632), 12 bound-forward launches a chunk and a
-    joint re-inference; frames/s (building SMALL included) and peak memory."""
+    (56, 72)), a ``Loop`` block, ``--traj_formats tum,kitti`` and ``--mesh``:
+    72 finite poses in each trajectory file, a finite ``combined_pcd.ply``, a
+    finite ``scene_mesh.ply`` (the TSDF fusion at resolution 192, sparse, its
+    ``save_mesh`` timed apart), at least one joint re-inference (S = 41632),
+    12 bound-forward launches a chunk and a joint re-inference; frames/s
+    (building SMALL included) and peak memory.  Random weights may leave no
+    surface (the mesh export then writes nothing, as the JAX package's), so
+    the mesh itself is held on the synthetic room (``streaming_mesh_room``)."""
     from da3slam_tpu_torch.cli import streaming
+    from da3slam_tpu_torch.inout.mesh import read_mesh_ply
     from da3slam_tpu_torch.inout.ply import read_ply as port_read_ply
+    from da3slam_tpu_torch.slam.streaming import DA3Streaming
 
     image_dir = loop_frames_dir()
     cfg = WORK / "stream_loop.yaml"
     cfg.write_text("Weights: {DA3: small}\n" + LOOP_BLOCK)
     out_dir = WORK / "stream_out"
+    save_mesh, mesh_s = DA3Streaming.save_mesh, []
+
+    def timed_save_mesh(self):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        save_mesh(self)
+        torch.cuda.synchronize()
+        mesh_s.append(time.perf_counter() - t)
+
+    DA3Streaming.save_mesh = timed_save_mesh
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    with counted(path_launches, "streaming"):
-        t0 = time.perf_counter()
-        run = streaming.main(["--image_dir", str(image_dir), "--config", str(cfg),
-                              "--output_dir", str(out_dir), "--traj_formats", "tum,kitti"])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    try:
+        with counted(path_launches, "streaming"):
+            t0 = time.perf_counter()
+            run = streaming.main(["--image_dir", str(image_dir), "--config", str(cfg),
+                                  "--output_dir", str(out_dir), "--traj_formats", "tum,kitti",
+                                  "--mesh"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        DA3Streaming.save_mesh = save_mesh
     attempts = _attempts(run.loop_attempts)
     launches = path_launches["streaming"]
     expected = expected_launches(flash_attn_bound_fwd=12 * (LOOP_CHUNKS + len(attempts)))
     files = {name: np.loadtxt(out_dir / name, ndmin=2) for name in
              ("camera_poses.txt", "camera_poses_tum.txt", "camera_poses_kitti.txt")}
     pts, cols = port_read_ply(out_dir / "combined_pcd.ply")
+    mesh = out_dir / "scene_mesh.ply"
+    verts, faces = read_mesh_ply(mesh) if mesh.exists() else (np.zeros((0, 3)), np.zeros((0, 3)))
     emit("streaming", frames=LOOP_FRAMES, chunk_ranges=run.chunk_ranges,
          joint_reinferences=len(attempts), joint_views=32, joint_seq_len=32 * 1301,
          attempts=attempts, accepted_edges=[[a, b] for a, b, _ in run.loop_edges],
          wall_s=wall, frames_per_s=LOOP_FRAMES / wall,
-         wall_includes="building SMALL on the CPU, its upload, PNG decode, spills, PLYs",
+         wall_includes="building SMALL on the CPU, its upload, PNG decode, spills, PLYs, "
+                       "the mesh",
+         save_mesh_s=mesh_s, mesh_resolution=run.mesh_resolution, mesh_sparse=run.mesh_sparse,
+         mesh_block_budget=run._mesh_block_budget, mesh_vertices=int(len(verts)),
+         mesh_faces=int(len(faces)), mesh_finite=bool(np.isfinite(verts).all()),
          max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
          poses_shapes={k: list(v.shape) for k, v in files.items()},
          ply_points=int(len(pts)), ply_finite=bool(np.isfinite(pts).all()),
@@ -2019,12 +2080,51 @@ def phase_streaming(path_launches: dict) -> None:
             fail(f"streaming: {name} {rows.shape}, finite={np.isfinite(rows).all()}")
     if len(pts) == 0 or not np.isfinite(pts).all() or cols is None:
         fail(f"streaming: combined_pcd.ply with {len(pts)} points, finite={np.isfinite(pts).all()}")
+    if not np.isfinite(verts).all() or len(mesh_s) != 1 or run._mesh_block_budget is None:
+        fail(f"streaming: scene_mesh.ply with {len(verts)} vertices, "
+             f"finite={np.isfinite(verts).all()}, save_mesh ran {len(mesh_s)} times, "
+             f"budget {run._mesh_block_budget}")
     if len(run.chunk_ranges) != LOOP_CHUNKS or run.chunk_ranges[-1] != (56, 72):
         fail(f"streaming: chunks {run.chunk_ranges}")
     if not attempts:
         fail("streaming: no joint re-inference ran")
     if launches != expected:
         fail(f"streaming: launches {launches} != {expected}")
+
+
+def phase_streaming_mesh_room() -> None:
+    """``DA3Streaming`` with ``export_mesh`` on the card over the synthetic
+    corner room (``utils/synthetic.py``'s model: 9 frames in chunks of 4,
+    overlap 2, chunk scales 1.4 / 0.8 / 1.1), sparse and dense: the mesh lies
+    on the chunk-0-scaled planes (90% of vertices within 0.2·s0, the CPU
+    test's bound) and has the CPU run's vertex count within 2%."""
+    from da3slam_tpu_torch.inout.mesh import read_mesh_ply
+    from da3slam_tpu_torch.slam.streaming import DA3Streaming
+    from da3slam_tpu_torch.utils import synthetic as syn
+
+    poses, scales = syn.make_trajectory(9), [1.4, 0.8, 1.1]
+    image_dir = syn.make_synthetic_image_dir(WORK / "room", 9)
+    rows = {}
+    for sparse in (True, False):
+        verts = {}
+        for device in ("cuda", "cpu"):
+            out = WORK / f"room_{sparse}_{device}"
+            cfg = {"Model": {"chunk_size": 4, "overlap": 2, "export_mesh": True,
+                             "mesh_resolution": 64, "mesh_sparse": sparse}}
+            DA3Streaming(image_dir, str(out), cfg, device=device,
+                         model=syn.SyntheticDA3(poses, chunk_scales=scales)).run()
+            verts[device] = read_mesh_ply(out / "scene_mesh.ply")[0]
+        v = verts["cuda"]
+        dists = np.min(np.stack([np.abs(v @ np.asarray(n) - c * scales[0])
+                                 for n, c in syn.PLANES]), axis=0)
+        rows["sparse" if sparse else "dense"] = {
+            "vertices": int(len(v)), "cpu_vertices": int(len(verts["cpu"])),
+            "p90_plane_dist": float(np.quantile(dists, 0.9)), "bound": 0.2 * scales[0]}
+    emit("streaming_mesh_room", frames=9, resolution=64, runs=rows)
+    for mode, r in rows.items():
+        if not (r["vertices"] > 200 and r["p90_plane_dist"] < r["bound"]
+                and abs(r["vertices"] - r["cpu_vertices"]) <= 0.02 * r["cpu_vertices"]):
+            fail(f"streaming_mesh_room {mode}: {r}")
 
 
 def phase_checkpoint() -> None:
@@ -2119,6 +2219,291 @@ def phase_pipeline(path_launches: dict, slam_runs: dict) -> None:
              preset="small", frames=15, dtype="bfloat16")
 
 
+def c3vd_frames_dir() -> Path:
+    """31 generated frames at C3VD's 1080×1350 (JPEG): a textured field
+    drifting sideways under an exposure that swings from dark to bright,
+    what the brightness pass normalises."""
+    from PIL import Image
+
+    image_dir = WORK / "c3vd_frames"
+    if not image_dir.exists():
+        image_dir.mkdir(parents=True)
+        H, W = C3VD_HW
+        rng = np.random.default_rng(2)
+        shift = 4
+        yy, xx = np.mgrid[0:H, 0:W + shift * N_FRAMES].astype(np.float32) / H
+        phases = rng.uniform(0, 2 * np.pi, size=(3, 2))
+        base = np.stack([0.5 + 0.25 * np.sin(2 * np.pi * (3 * xx + 2 * yy) + phases[c, 0])
+                         + 0.2 * np.sin(2 * np.pi * (7 * yy - 5 * xx) + phases[c, 1])
+                         for c in range(3)], -1)
+        for i in range(N_FRAMES):
+            gain = 0.35 + 1.1 * i / (N_FRAMES - 1)
+            f = base[:, shift * i: shift * i + W] * gain * 255.0
+            f = f + rng.integers(0, 8, size=f.shape, dtype=np.uint8)
+            Image.fromarray(np.clip(f, 0, 255).astype(np.uint8)).save(
+                image_dir / f"{i:06d}.jpg", quality=95)
+    return image_dir
+
+
+def _lab_bin_flips(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Pixels whose CLAHE bin (int32 truncation of L) differs."""
+    return a[..., 0].astype(np.int32) != b[..., 0].astype(np.int32)
+
+
+def phase_preprocess(path_launches: dict) -> Path:
+    """``cli/preprocess crop --dataset c3vd2`` then ``brightness`` over the 31
+    C3VD-sized frames on the card; ``preprocess_batch`` over 16 of them to
+    504² (the counterpart of ``bench.py:452 bench_preprocess_fps``), CUDA
+    events: frames/s; card against CPU on two cropped frames: the uint8
+    outputs within 1 LSB wherever no CLAHE bin flips, the flips counted.
+    Returns the normalised frames' directory."""
+    from da3slam_tpu_torch.cli import preprocess as cli
+    from da3slam_tpu_torch.inout.images import decode_image, load_image_paths
+    from da3slam_tpu_torch.preprocess import device as pdev
+    from da3slam_tpu_torch.preprocess.host import CROP_PRESETS
+
+    src = c3vd_frames_dir()
+    crop_dir, norm_dir = WORK / "c3vd_cropped", WORK / "c3vd_norm"
+    torch.cuda.synchronize()
+    with counted(path_launches, "preprocess"):
+        t0 = time.perf_counter()
+        cli.main(["crop", "--input", str(src), "--output", str(crop_dir), "--dataset", "c3vd2"])
+        t1 = time.perf_counter()
+        cli.main(["brightness", "--input", str(crop_dir), "--output", str(norm_dir)])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    launches = path_launches["preprocess"]
+    cropped = load_image_paths(str(crop_dir))
+    normed = load_image_paths(str(norm_dir))
+    crop_hw = decode_image(normed[0]).shape
+
+    frames = torch.from_numpy(np.stack([decode_image(p) for p in load_image_paths(str(src))[:16]]))
+    batch = frames.to("cuda")
+    preset = CROP_PRESETS["c3vd2"]
+
+    def run():
+        return pdev.preprocess_batch(batch, preset["ratio"], preset["x_offset"],
+                                     out_hw=(504, 504))
+
+    torch.cuda.reset_peak_memory_stats()
+    out = run()
+    ms = cuda_ms(run, reps=5)
+    state = gpu_state()
+    peak = torch.cuda.max_memory_allocated()
+    finite = bool(torch.isfinite(out).all().item())
+
+    two = np.stack([decode_image(p) for p in cropped[:2]])
+    card = pdev.adjust_brightness(torch.from_numpy(two).to("cuda")).cpu().numpy()
+    host = pdev.adjust_brightness(torch.from_numpy(two)).numpy()
+    flips = _lab_bin_flips(pdev.rgb_to_lab(torch.from_numpy(two).to("cuda")).cpu().numpy(),
+                           pdev.rgb_to_lab(torch.from_numpy(two)).numpy())
+    diff = np.abs(card.astype(np.int32) - host.astype(np.int32))
+    flip_bound = max(2.0, PREPROCESS_FLIP_SHARE * flips.size)
+    clean = ~flips.any(axis=(1, 2))
+    emit("preprocess", frames=N_FRAMES, frame_hw=list(C3VD_HW), dataset="c3vd2",
+         cropped_hw=list(crop_hw[:2]), crop_s=t1 - t0, brightness_s=t2 - t1,
+         cli_frames_per_s=N_FRAMES / (t2 - t0),
+         cli_includes="JPEG decode and encode, one upload and fetch a frame (crop) or batch",
+         batch=16, out_hw=[504, 504], preprocess_batch_ms=ms,
+         preprocess_batch_frames_per_s=16 / ms * 1e3, gpu_state=state,
+         max_memory_allocated_bytes=peak, output_finite=finite,
+         card_vs_cpu_frames=2, bin_flips=int(flips.sum()), bin_flip_bound=flip_bound,
+         frames_without_flips=int(clean.sum()), max_abs_lsb=int(diff.max()),
+         max_abs_lsb_without_flips=int(diff[clean].max()) if clean.any() else None,
+         pixels_over_1_lsb=int((diff > 1).sum()), kernel_launches=launches)
+    if len(cropped) != N_FRAMES or len(normed) != N_FRAMES:
+        fail(f"preprocess: {len(cropped)} cropped, {len(normed)} normalised of {N_FRAMES}")
+    if not finite or tuple(out.shape) != (16, 504, 504, 3):
+        fail(f"preprocess: preprocess_batch gave {tuple(out.shape)}, finite={finite}")
+    if flips.sum() > flip_bound or (clean.any() and diff[clean].max() > 1):
+        fail(f"preprocess: card against CPU, {int(flips.sum())} bin flips (bound {flip_bound}), "
+             f"{int(diff[clean].max()) if clean.any() else None} LSB without flips")
+    if launches != expected_launches():
+        fail(f"preprocess: launches {launches}")
+    return norm_dir
+
+
+def tsdf_scene():
+    """``bench.py:_tsdf_scene``: ground-truth depth of a 360° orbit inside
+    the closed box at 504², confidence 1."""
+    from da3slam_tpu_torch.utils.synthetic import (
+        BOX_PLANES,
+        default_intrinsics,
+        make_orbit_trajectory,
+        render_depth,
+    )
+
+    hw = (TSDF_HW, TSDF_HW)
+    K = default_intrinsics(hw)
+    poses = make_orbit_trajectory(TSDF_FRAMES)
+    depth = np.stack([render_depth(E, K, hw, planes=BOX_PLANES) for E in poses])
+    return (depth.astype(np.float32), np.ones(depth.shape, np.float32),
+            np.repeat(K[None], TSDF_FRAMES, 0).astype(np.float32), poses.astype(np.float32))
+
+
+def _grid_diff(a, b) -> dict:
+    """Card grid against CPU grid: max |diff| and the voxels beyond tolerance."""
+    out = {"share_over_tol": 0.0}
+    bad = torch.zeros(a.sdf.shape, dtype=torch.bool)
+    for f, tol in (("sdf", TSDF_TOL), ("weight", TSDF_TOL), ("color", 1e-3)):
+        x, y = getattr(a, f), getattr(b, f)
+        if x is None:
+            continue
+        d = (x.cpu() - y).abs()
+        out[f"{f}_max_abs_diff"] = d.max().item()
+        bad |= (d > tol) if d.ndim == 3 else (d > tol).any(-1)
+    out["voxels_over_tol"] = int(bad.sum())
+    out["share_over_tol"] = bad.float().mean().item()
+    return out
+
+
+def phase_tsdf(path_launches: dict) -> None:
+    """The TSDF benchmark scene fused dense, sparse and sparse with carve on
+    the card (a warm run, then the median of 3 by the host clock, synced):
+    frames/s, peak active blocks against the budget, host waits, peak memory;
+    card against CPU on every 14th frame (dense and sparse); the card's sparse
+    grid against its dense ``band_only`` grid bit for bit; the sparse grid's
+    mesh against the box planes (median distance under one voxel), marching
+    tetrahedra's host time apart."""
+    import statistics
+
+    from da3slam_tpu_torch.inout.mesh import tsdf_to_mesh
+    from da3slam_tpu_torch.ops import tsdf
+    from da3slam_tpu_torch.utils.synthetic import BOX_PLANES
+
+    scene = tsdf_scene()
+    depth, conf, K, E = (torch.from_numpy(a).to("cuda") for a in scene)
+    lo, hi = tsdf.estimate_bounds(depth[:16], K[:16], E[:16], resolution=TSDF_RES)
+    grid0 = tsdf.grid_from_bounds(lo, hi, TSDF_RES, device="cuda")
+    voxels = grid0.sdf.numel()
+    modes, grids = {}, {}
+    with counted(path_launches, "tsdf"):
+        for mode in ("dense", "sparse", "carve"):
+            budget = peak_blocks = None
+            if mode != "dense":
+                carve = mode == "carve"
+                _, counts = tsdf.integrate_frames_sparse(grid0, depth, conf, K, E,
+                                                         batch=TSDF_BATCH, carve=carve)
+                peak_blocks = int(counts.max())
+                budget = -(-(peak_blocks + 1) // 128) * 128
+
+                def run(carve=carve, budget=budget):
+                    return tsdf.integrate_frames_sparse(grid0, depth, conf, K, E,
+                                                        active_blocks=budget, batch=TSDF_BATCH,
+                                                        carve=carve)
+            else:
+                def run():
+                    return tsdf.integrate_frames(grid0, depth, conf, K, E), None
+            run()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            box, where = {}, {}
+            syncs = _count_syncs(lambda: box.setdefault("out", run()), where)
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                g, counts = run()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            grids[mode] = g
+            wall = statistics.median(times)
+            modes[mode] = {"wall_s": wall, "frames_per_s": TSDF_FRAMES / wall, "walls_s": times,
+                           "host_syncs": syncs, "host_syncs_at": where,
+                           "gpu_state": gpu_state(),
+                           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                           "peak_active_blocks": peak_blocks, "block_budget": budget,
+                           "budget_counts_max": None if counts is None else int(counts.max())}
+            if counts is not None and counts.max() > budget:
+                fail(f"tsdf {mode}: {int(counts.max())} active blocks over the budget {budget}")
+    launches = path_launches["tsdf"]
+
+    # card against CPU, and the sparse grid against dense band_only, on every
+    # 14th frame (8 frames: one sparse step)
+    sub = [a[::14] for a in scene]
+    cpu0 = tsdf.grid_from_bounds(lo, hi, TSDF_RES, device="cpu")
+    vs_cpu = {}
+    for name, fn in (("dense", lambda g, *a: tsdf.integrate_frames(g, *a)),
+                     ("sparse", lambda g, *a: tsdf.integrate_frames_sparse(g, *a)[0])):
+        card = fn(grid0, *(torch.from_numpy(a).to("cuda") for a in sub))
+        host = fn(cpu0, *(torch.from_numpy(a) for a in sub))
+        vs_cpu[name] = _grid_diff(card, host)
+    band = grid0
+    pts = tsdf._voxel_centers_world(grid0)
+    for i in range(len(sub[0])):
+        band = tsdf.integrate(band, *(torch.from_numpy(a[i]).to("cuda") for a in sub),
+                              pts_world=pts, band_only=True)
+    sparse_sub = tsdf.integrate_frames_sparse(grid0, *(torch.from_numpy(a).to("cuda")
+                                                       for a in sub))[0]
+    band_equal = all(torch.equal(getattr(band, f), getattr(sparse_sub, f))
+                     for f in ("sdf", "weight"))
+    band_diff = max((getattr(band, f) - getattr(sparse_sub, f)).abs().max().item()
+                    for f in ("sdf", "weight"))
+
+    t0 = time.perf_counter()
+    verts, faces = tsdf_to_mesh(grids["sparse"])
+    mesh_s = time.perf_counter() - t0
+    voxel = float(grid0.voxel)
+    dists = np.min(np.stack([np.abs(verts @ np.asarray(n) - c) for n, c in BOX_PLANES]), axis=0) \
+        if len(verts) else np.full(1, np.inf)
+    emit("tsdf", frames=TSDF_FRAMES, hw=[TSDF_HW, TSDF_HW], resolution=TSDF_RES,
+         grid=list(grid0.sdf.shape), voxels=voxels, voxel=voxel, batch=TSDF_BATCH, modes=modes,
+         card_vs_cpu_frames=len(sub[0]), card_vs_cpu=vs_cpu, tol=TSDF_TOL,
+         edge_share_bound=TSDF_EDGE_SHARE, sparse_vs_band_only_bit_equal=band_equal,
+         sparse_vs_band_only_max_abs_diff=band_diff, mesh_host_s=mesh_s,
+         mesh_vertices=int(len(verts)), mesh_faces=int(len(faces)),
+         mesh_median_plane_dist=float(np.median(dists)),
+         mesh_p95_plane_dist=float(np.quantile(dists, 0.95)), kernel_launches=launches)
+    for name, d in vs_cpu.items():
+        if not d["share_over_tol"] <= TSDF_EDGE_SHARE:
+            fail(f"tsdf: card against CPU ({name}): {d}")
+    if not band_equal:
+        fail(f"tsdf: the sparse grid is not the dense band_only grid (max diff {band_diff})")
+    if len(verts) < 1000 or not np.median(dists) < voxel:
+        fail(f"tsdf: mesh of {len(verts)} vertices, median plane distance {np.median(dists)} "
+             f"against a voxel of {voxel}")
+    if launches != expected_launches():
+        fail(f"tsdf: launches {launches}")
+
+
+def phase_main_mesh(path_launches: dict, image_dir: Path) -> None:
+    """``cli/main_mesh`` at SMALL, full width (chunk 8, ``--process_res 504``)
+    over phase 22's 31 normalised frames, once dense ``--color`` and once
+    ``--sparse``: a non-empty finite mesh, 12 bound-forward launches a chunk,
+    frames/s (building SMALL included)."""
+    from da3slam_tpu_torch.cli import main_mesh
+    from da3slam_tpu_torch.inout.mesh import read_mesh_ply
+
+    runs = {}
+    for tag, flags in (("dense_color", ["--color"]), ("sparse", ["--sparse"])):
+        out = WORK / f"mesh_{tag}.ply"
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        with counted(path_launches, f"main_mesh_{tag}"):
+            t0 = time.perf_counter()
+            main_mesh.main(["--image_dir", str(image_dir), "--chunk_size", str(MESH_CHUNK),
+                            "--process_res", "504", "--output", str(out)] + flags)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = path_launches[f"main_mesh_{tag}"]
+        expected = expected_launches(flash_attn_bound_fwd=12 * MESH_CHUNKS)
+        verts, faces, cols = read_mesh_ply(out, with_colors=True)
+        runs[tag] = {"wall_s": wall, "frames_per_s": N_FRAMES / wall,
+                     "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                     "vertices": int(len(verts)), "faces": int(len(faces)),
+                     "finite": bool(np.isfinite(verts).all()), "colors": cols is not None,
+                     "kernel_launches": launches, "expected_launches": expected}
+        if len(verts) == 0 or not np.isfinite(verts).all() or (cols is not None) != (tag != "sparse"):
+            fail(f"main_mesh {tag}: {len(verts)} vertices, finite={np.isfinite(verts).all()}, "
+                 f"colors={cols is not None}")
+        if launches != expected:
+            fail(f"main_mesh {tag}: launches {launches} != {expected}")
+    emit("main_mesh", frames=N_FRAMES, preset="small", chunk_size=MESH_CHUNK, chunks=MESH_CHUNKS,
+         process_res=504, resolution=192, cross_seq_len=MESH_CHUNK * 1301,
+         wall_includes="building SMALL on the CPU, its upload, JPEG decode, the mesh and PLY",
+         runs=runs)
+
+
 SOURCES = {
     "flash_attn_bound_fwd": ("da3slam_tpu_torch/ops/csrc/flash_attn_fwd.cu",
                              "da3slam_tpu/ops/flash_attention.py:116", "cross"),
@@ -2169,6 +2554,10 @@ def main() -> None:
     phase_loop_closure()
     phase_main_slam_loop(path_launches)
     phase_streaming(path_launches)
+    phase_streaming_mesh_room()
+    mesh_frames = phase_preprocess(path_launches)
+    phase_tsdf(path_launches)
+    phase_main_mesh(path_launches, mesh_frames)
     kernels = []
     for name, (source, replaces, headline) in SOURCES.items():
         by_path = {path: counts[name] for path, counts in path_launches.items()}

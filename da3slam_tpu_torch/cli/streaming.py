@@ -5,8 +5,8 @@
 Same flags as the JAX package's CLI, plus ``--device`` (default ``cuda``; the
 run happens there or not at all).  Writes per-chunk PLYs, a merged cloud,
 camera_poses.txt / intrinsic.txt / camera_poses.ply (and the TUM/KITTI files
-of ``--traj_formats``), then deletes its temporary spill.  ``--mesh`` is
-refused: the TSDF mesh export is not ported yet.
+of ``--traj_formats``), with ``--mesh`` a TSDF-fused ``scene_mesh.ply``,
+then deletes its temporary spill.
 """
 
 from __future__ import annotations
@@ -27,7 +27,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="comma-separated interop trajectory exports beside "
                    "camera_poses.txt: tum,kitti")
     p.add_argument("--mesh", action="store_true",
-                   help="TSDF-fuse the sequence into scene_mesh.ply (not ported yet: refused)")
+                   help="also TSDF-fuse the sequence into scene_mesh.ply "
+                   "(Model.export_mesh; mesh_resolution, mesh_sparse, mesh_carve)")
     p.add_argument("--device", default="cuda", help="torch device to run on (cuda, cuda:N, cpu)")
     return p
 

@@ -214,7 +214,7 @@ class DepthAnything3:
         if export_dir is not None and export_format != "mini_npz":
             if export_format == "glb":
                 raise NotImplementedError("the glb export is not ported yet (ROADMAP queue 1, "
-                                          "item 12): use export_format='mini_npz'")
+                                          "item 12, its 3DGS half): use export_format='mini_npz'")
             raise ValueError(f"unknown export_format {export_format!r}")
         if isinstance(image, torch.Tensor):
             raw = image if image.ndim == 4 else image[None]

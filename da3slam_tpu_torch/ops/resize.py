@@ -31,21 +31,26 @@ def _stats(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return const(IMAGENET_MEAN), const(IMAGENET_STD)
 
 
-def resize_normalize(images: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
-    """``[N, H, W, 3]`` uint8/float RGB → resized, ImageNet-normalised f32 NHWC.
+def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """Float ``[N, H, W, C]`` → ``[N, *out_hw, C]``, bilinear with
+    antialiasing, as ``jax.image.resize(..., "bilinear")`` does: on a
+    downscale (the 518→504 ingest) the triangle filter widens by the scale
+    factor; plain ``F.interpolate`` bilinear would not."""
+    if (x.shape[1], x.shape[2]) == tuple(out_hw):
+        return x
+    return F.interpolate(
+        x.permute(0, 3, 1, 2), size=tuple(out_hw), mode="bilinear",
+        align_corners=False, antialias=True,
+    ).permute(0, 2, 3, 1)
 
-    Bilinear with antialiasing, as ``jax.image.resize(..., "bilinear")``
-    does: on a downscale (the 518→504 ingest) the triangle filter widens by
-    the scale factor; plain ``F.interpolate`` bilinear would not.
-    """
+
+def resize_normalize(images: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """``[N, H, W, 3]`` uint8/float RGB → resized (:func:`resize_bilinear`),
+    ImageNet-normalised f32 NHWC."""
     x = images.to(torch.float32)
     if images.dtype == torch.uint8:
         x = x / 255.0
-    if (x.shape[1], x.shape[2]) != tuple(out_hw):
-        x = F.interpolate(
-            x.permute(0, 3, 1, 2), size=tuple(out_hw), mode="bilinear",
-            align_corners=False, antialias=True,
-        ).permute(0, 2, 3, 1)
+    x = resize_bilinear(x, out_hw)
     mean, std = _stats(x)
     return (x - mean) / std
 

@@ -16,11 +16,12 @@ PASS 2 — accumulate the Sim(3)s to the chunk-0 frame, re-load each chunk,
 apply its accumulated transform, write the aligned npz and a confident
 point-cloud PLY (threshold = mean·coef, sampled), then export
 ``camera_poses.txt`` / ``intrinsic.txt`` / ``camera_poses.ply`` (and the
-TUM/KITTI files asked for) and the merged cloud.
+TUM/KITTI files asked for) and the merged cloud; with ``Model.export_mesh``
+also ``scene_mesh.ply``, every chunk TSDF-fused into one grid.
 
-The registrations, the pose graph and the point maps run on ``device``; the
-spills, PLYs and trajectory files are numpy on the host.  The TSDF mesh export
-(``Model.export_mesh``) is not ported: it is refused at construction.
+The registrations, the pose graph, the point maps and the TSDF fusion run on
+``device``; the spills, PLYs, trajectory files and the mesh extraction are
+numpy on the host.
 """
 
 from __future__ import annotations
@@ -60,9 +61,6 @@ class DA3Streaming:
         self.output_dir = Path(save_dir)
         self.device = torch.device(device)
         mcfg = config.get("Model", {})
-        if mcfg.get("export_mesh", False):
-            raise NotImplementedError("the TSDF mesh export is not ported yet (ROADMAP queue 1, "
-                                      "item 12): set Model.export_mesh false / drop --mesh")
         self.chunk_size = mcfg.get("chunk_size", 16)
         self.overlap = mcfg.get("overlap", mcfg.get("overlap_size", 4))
         self.overlap_s = self.overlap // 2
@@ -80,6 +78,19 @@ class DA3Streaming:
         # "tum" / "kitti" beside camera_poses.txt, checked here so a typo
         # fails before the run
         self.traj_formats = validate_extra_formats(mcfg.get("traj_formats", ()) or ())
+        # the TSDF mesh beside combined_pcd.ply (ops/tsdf.py + inout/mesh.py)
+        self.export_mesh = mcfg.get("export_mesh", False)
+        self.mesh_resolution = mcfg.get("mesh_resolution", 192)
+        # block-sparse band-only fusion; False takes the dense every-voxel
+        # update (which also carves free space in front of surfaces)
+        self.mesh_sparse = mcfg.get("mesh_sparse", True)
+        # free-space carving of occupied blocks on the sparse path, so
+        # spurious early surfaces contradicted by later chunks get erased
+        self.mesh_carve = mcfg.get("mesh_carve", False)
+        self._mesh_bounds: list = []
+        # the sparse fusion's block budget shared by every chunk, set from
+        # the first chunk's true counts (saves the later chunks' counting pass)
+        self._mesh_block_budget: int | None = None
         pcfg = config.get("Pointcloud_Save", mcfg.get("Pointcloud_Save", {})) or {}
         self.conf_threshold_coef = pcfg.get("conf_threshold_coef", 1.0)
         self.sample_ratio = pcfg.get("sample_ratio", 0.3)
@@ -318,8 +329,12 @@ class DA3Streaming:
             np.savez(self.result_aligned_dir / f"chunk_{k}.npz",
                      points=pts_aligned, conf=chunk["conf"], images=chunk["images"])
             self._save_confident_pointcloud(k, pts_aligned, chunk)
+            if self.export_mesh:
+                self._collect_mesh_bounds(pts_aligned, chunk)
 
         self.save_camera_poses()
+        if self.export_mesh:
+            self.save_mesh()
         if self.save_debug_info:
             rel = [torch.stack(parts).cpu().numpy() for parts in zip(*self.sim3_list)]
             np.savez(
@@ -346,6 +361,23 @@ class DA3Streaming:
             idx = np.random.default_rng(k).choice(len(pts_flat), n_keep, replace=False)
             pts_flat, cols_flat = pts_flat[idx], cols_flat[idx]
         write_ply(self.pcd_dir / f"chunk_{k}.ply", pts_flat, cols_flat)
+
+    def _collect_mesh_bounds(self, pts: np.ndarray, chunk: dict) -> None:
+        """The TSDF scene bounds of one chunk: 1%/99% quantiles of a ~10k-point
+        strided sample, gated by the exported cloud's confidence threshold
+        (low-confidence outliers would inflate the box and coarsen the
+        voxels)."""
+        conf_flat = np.asarray(chunk["conf"]).reshape(-1)
+        confident = conf_flat > conf_flat.mean() * self.conf_threshold_coef
+        if not confident.any():
+            # uniform confidence empties the strict gate: take every point
+            confident = np.ones_like(confident)
+        flat = pts.reshape(-1, 3)[confident]
+        samp = flat[:: max(flat.shape[0] // 10000, 1)]
+        ok = np.isfinite(samp).all(axis=1)
+        if ok.any():
+            self._mesh_bounds.append((np.quantile(samp[ok], 0.01, axis=0),
+                                      np.quantile(samp[ok], 0.99, axis=0)))
 
     # -- exports -----------------------------------------------------------
     def save_camera_poses(self) -> None:
@@ -398,6 +430,75 @@ class DA3Streaming:
 
         save_camera_poses(self.output_dir, np.stack(all_poses), np.stack(all_intr),
                           chunk_indices=chunk_of_frame, extra_formats=self.traj_formats)
+
+    def save_mesh(self) -> None:
+        """TSDF-fuse every chunk (scaled depth, global w2c poses) on the device
+        and write ``scene_mesh.ply`` with per-vertex colours and normals.
+        Chunks integrate one at a time (bounded memory)."""
+        from da3slam_tpu_torch.core.transforms import sim3_transform_w2c
+        from da3slam_tpu_torch.inout.mesh import tsdf_to_mesh, tsdf_vertex_normals, write_mesh_ply
+        from da3slam_tpu_torch.ops.tsdf import (
+            grid_from_bounds,
+            integrate_frames,
+            integrate_frames_sparse,
+            vertex_colors,
+        )
+
+        if not self._mesh_bounds:
+            print("[mesh] no aligned chunks — skipping mesh export")
+            return
+        lo = np.min([b[0] for b in self._mesh_bounds], axis=0)
+        hi = np.max([b[1] for b in self._mesh_bounds], axis=0)
+        # pad past the truncation band (wall-facing cameras put the surface
+        # on the quantile box edge, see ops/tsdf.py:estimate_bounds)
+        pad = max(0.05, 4.0 * float(np.max(hi - lo, initial=1e-6)) / self.mesh_resolution)
+        grid = grid_from_bounds(lo - pad, hi + pad, self.mesh_resolution, with_color=True,
+                                device=self.device)
+
+        for k, (_rng, ext) in enumerate(self.all_camera_poses):
+            chunk = self.load_chunk(k)
+            T = Sim3(self.accumulated.s[k], self.accumulated.R[k], self.accumulated.t[k])
+            # global w2c per frame: the change of world frame of
+            # save_camera_poses; sim3_transform_w2c keeps the chunk's camera
+            # coordinates and the fused depth is scaled by s, so the whole
+            # 3x4 scales by s too
+            with highest_precision():
+                E_glob = T.s * sim3_transform_w2c(self._dev(ext), T)
+            # the spilled conf is already floor-shifted (conf - 1 >= 0)
+            fuse_args = (grid, self._dev(chunk["depth"]) * T.s,
+                         self._dev(np.maximum(chunk["conf"], 0.0)),
+                         self._dev(chunk["intrinsics"]), E_glob)
+            images = self._dev(chunk["images"])
+            if self.mesh_sparse:
+                # The first chunk auto-sizes the budget (with headroom) and
+                # later chunks skip the counting pass.  The counts are TRUE
+                # counts, so an over-budget chunk is found exactly and re-fused
+                # from the grid before it: no observation is dropped.
+                grid, counts = integrate_frames_sparse(
+                    *fuse_args, images=images, active_blocks=self._mesh_block_budget,
+                    carve=self.mesh_carve)
+                peak = int(counts.max()) if counts.size else 0
+                if self._mesh_block_budget is not None and peak > self._mesh_block_budget:
+                    print(f"[mesh] chunk {k + 1}: {peak} active blocks exceed budget "
+                          f"{self._mesh_block_budget}; re-fusing with auto-sized budget")
+                    grid, counts = integrate_frames_sparse(
+                        *fuse_args, images=images, active_blocks=None, carve=self.mesh_carve)
+                    peak = int(counts.max()) if counts.size else 0
+                if self._mesh_block_budget is None or peak > self._mesh_block_budget:
+                    # 25% headroom, rounded to a multiple of 128
+                    self._mesh_block_budget = -(-(peak * 5 // 4 + 1) // 128) * 128
+            else:
+                grid = integrate_frames(*fuse_args, images=images)
+            print(f"[mesh] fused chunk {k + 1}/{len(self.all_camera_poses)}")
+
+        verts, faces = tsdf_to_mesh(grid)
+        if len(verts) == 0:
+            print("[mesh] TSDF produced an empty mesh — nothing written")
+            return
+        out = self.output_dir / "scene_mesh.ply"
+        write_mesh_ply(out, verts, faces, colors=vertex_colors(grid, verts),
+                       normals=tsdf_vertex_normals(grid, verts))
+        print(f"[mesh] {len(verts)} vertices, {len(faces)} faces → {out}")
 
     # -- public API --------------------------------------------------------
     def run(self) -> None:

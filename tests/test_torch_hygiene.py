@@ -26,15 +26,18 @@ print(len(names), bad, ",".join(names))
 # the loop-closure and streaming slice: the walk must reach each of its modules
 LOOP_SLICE = ("cli.streaming", "ops.posegraph", "slam.evaluate", "slam.loop",
               "slam.online_loop", "slam.streaming", "utils.synthetic")
+# the dense-mapping slice: preprocessing and the TSDF mesh
+MESH_SLICE = ("cli.main_mesh", "cli.preprocess", "inout.mesh", "ops.tsdf",
+              "preprocess.device", "preprocess.host")
 
 
 def test_no_module_imports_jax_or_the_jax_package():
     out = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=ROOT, capture_output=True,
                          text=True, timeout=120, check=True).stdout.split()
-    assert int(out[0]) >= 54  # every module of the port was imported
+    assert int(out[0]) >= 65  # every module of the port was imported
     assert out[1] == "[]"
     walked = out[2].split(",")
-    assert all(f"da3slam_tpu_torch.{m}" in walked for m in LOOP_SLICE)
+    assert all(f"da3slam_tpu_torch.{m}" in walked for m in LOOP_SLICE + MESH_SLICE)
 
 
 @pytest.mark.parametrize("path", sorted(p.relative_to(ROOT).as_posix() for p in

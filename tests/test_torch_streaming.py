@@ -25,7 +25,9 @@ from da3slam_tpu.models.da3 import DepthAnything3 as JDA3
 from da3slam_tpu.models.da3 import init_params as jinit
 from da3slam_tpu.slam.streaming import DA3Streaming as JStreaming
 from da3slam_tpu.utils import synthetic as jsyn
+from da3slam_tpu.inout.mesh import read_mesh_ply as jread_mesh_ply
 from da3slam_tpu_torch.inout import ply, trajectory
+from da3slam_tpu_torch.inout.mesh import read_mesh_ply
 from da3slam_tpu_torch.models.config import get_preset
 from da3slam_tpu_torch.models.convert import convert
 from da3slam_tpu_torch.models.da3 import DA3Net, DepthAnything3
@@ -132,6 +134,65 @@ class TestStreamingMatchesJax:
         assert not (tmp_path / "t" / "_tmp_results_unaligned").exists()
 
 
+class TestStreamingMeshExport:
+    """``export_mesh``: tests/test_streaming.py's mesh cases on the port, held
+    to the JAX package's scene_mesh.ply (9 frames of the corner room in chunks
+    of 4, overlap 2, chunk scales 1.4 / 0.8 / 1.1)."""
+
+    SCALES = [1.4, 0.8, 1.1]
+
+    def config(self, sparse: bool) -> dict:
+        return {"Model": {"chunk_size": 4, "overlap": 2, "process_res": 64,
+                          "export_mesh": True, "mesh_resolution": 64, "mesh_sparse": sparse}}
+
+    def run_both(self, tmp_path, sparse: bool, budget=None):
+        poses = jsyn.make_trajectory(9)
+        image_dir = jsyn.make_synthetic_image_dir(tmp_path, 9)
+        runs = []
+        for name, cls, pkg, kw in (("t", DA3Streaming, tsyn, {"device": "cpu"}),
+                                   ("j", JStreaming, jsyn, {})):
+            s = cls(image_dir, str(tmp_path / name), self.config(sparse),
+                    model=pkg.SyntheticDA3(poses, chunk_scales=self.SCALES), **kw)
+            s._mesh_block_budget = budget
+            s.run()
+            runs.append(s)
+        return runs
+
+    @pytest.mark.parametrize("mesh_sparse", [True, False])
+    def test_mesh_lands_on_room_planes(self, tmp_path, mesh_sparse):
+        """scene_mesh.ply beside combined_pcd.ply, on the chunk-0-scaled room
+        planes; the JAX package's mesh has the vertex count within 2% and
+        the same budget."""
+        t, j = self.run_both(tmp_path, mesh_sparse)
+        verts, faces, cols = read_mesh_ply(tmp_path / "t" / "scene_mesh.ply", with_colors=True)
+        jverts = jread_mesh_ply(tmp_path / "j" / "scene_mesh.ply")[0]
+        assert len(verts) > 200 and len(faces) > 200 and cols is not None
+        assert abs(len(verts) - len(jverts)) <= 0.02 * len(jverts)
+        assert t._mesh_block_budget == j._mesh_block_budget
+        assert (t._mesh_block_budget is None) != mesh_sparse
+        s0 = self.SCALES[0]
+        dists = np.min(np.stack([np.abs(verts @ np.asarray(n) - c * s0) for n, c in tsyn.PLANES]),
+                       axis=0)
+        assert np.quantile(dists, 0.9) < 0.2 * s0
+        t.close()
+
+    def test_sparse_budget_reuse_and_overflow_refuse(self, tmp_path, capsys):
+        """A pre-set budget of 128 blocks, below what a chunk needs: the
+        chunk is found over budget, re-fused exactly from the grid before it,
+        and the budget raised, as in the JAX package; the mesh still lies on
+        the planes."""
+        t, j = self.run_both(tmp_path, True, budget=128)
+        assert "re-fusing with auto-sized budget" in capsys.readouterr().out
+        assert t._mesh_block_budget == j._mesh_block_budget > 128
+        verts = read_mesh_ply(tmp_path / "t" / "scene_mesh.ply")[0]
+        jverts = jread_mesh_ply(tmp_path / "j" / "scene_mesh.ply")[0]
+        assert abs(len(verts) - len(jverts)) <= 0.02 * len(jverts)
+        s0 = self.SCALES[0]
+        dists = np.min(np.stack([np.abs(verts @ np.asarray(n) - c * s0) for n, c in tsyn.PLANES]),
+                       axis=0)
+        assert np.quantile(dists, 0.9) < 0.2 * s0
+
+
 class CountingModel:
     """``tsyn.SyntheticDA3`` that counts its calls."""
 
@@ -171,10 +232,18 @@ class TestStreamingBehaviour:
             s.run()
 
     def test_export_mesh_and_bad_formats_refused_at_construction(self, tmp_path):
-        model = CountingModel(jsyn.make_trajectory(3))
-        cfg = {"Model": {**self.CONFIG["Model"], "export_mesh": True}}
-        with pytest.raises(NotImplementedError, match="item 12"):
-            DA3Streaming(str(tmp_path), str(tmp_path / "o"), cfg, model=model, device="cpu")
+        """``export_mesh`` is accepted now and writes scene_mesh.ply beside the
+        merged cloud; an unknown trajectory format is still refused before
+        the run."""
+        poses = jsyn.make_trajectory(9)
+        model = CountingModel(poses)
+        cfg = {"Model": {**self.CONFIG["Model"], "export_mesh": True, "mesh_resolution": 48}}
+        s = DA3Streaming(jsyn.make_synthetic_image_dir(tmp_path, 9), str(tmp_path / "o"), cfg,
+                         model=model, device="cpu")
+        assert s.export_mesh and s.mesh_sparse and not s.mesh_carve
+        s.run()
+        verts, faces = read_mesh_ply(tmp_path / "o" / "scene_mesh.ply")
+        assert len(verts) > 100 and len(faces) > 100 and np.isfinite(verts).all()
         cfg = {"Model": {**self.CONFIG["Model"], "traj_formats": ["tum", "euroc"]}}
         with pytest.raises(ValueError, match="euroc"):
             DA3Streaming(str(tmp_path), str(tmp_path / "o"), cfg, model=model, device="cpu")
@@ -267,14 +336,25 @@ class TestCli:
         np.testing.assert_allclose(tp, jp, atol=1e-3 * max(1.0, np.abs(jp).max()))
         assert not (tmp_path / "port" / "_tmp_results_unaligned").exists()
 
-    def test_cli_refuses_mesh_and_missing_cuda(self, tmp_path):
+    def test_cli_refuses_mesh_and_missing_cuda(self, tmp_path, monkeypatch):
+        """``--mesh`` now writes scene_mesh.ply (the synthetic model standing
+        in for the preset); without a card the default device is refused."""
         from da3slam_tpu_torch.cli import streaming
 
+        poses = jsyn.make_trajectory(9)
+        model = CountingModel(poses)
+        monkeypatch.setattr(DepthAnything3, "from_pretrained",
+                            classmethod(lambda cls, *a, **k: model))
         cfg = tmp_path / "c.yaml"
-        cfg.write_text("Weights: {DA3: tiny}\n")
-        with pytest.raises(NotImplementedError, match="item 12"):
-            streaming.main(["--image_dir", str(tmp_path), "--config", str(cfg), "--mesh",
-                            "--output_dir", str(tmp_path / "o"), "--device", "cpu"])
+        cfg.write_text("Weights: {DA3: tiny}\n"
+                       "Model: {chunk_size: 4, overlap: 1, mesh_resolution: 48}\n")
+        run = streaming.main(["--image_dir", jsyn.make_synthetic_image_dir(tmp_path, 9),
+                              "--config", str(cfg), "--mesh", "--output_dir",
+                              str(tmp_path / "o"), "--device", "cpu"])
+        assert run.export_mesh and model.calls == len(run.chunk_ranges)
+        verts, faces, cols = read_mesh_ply(tmp_path / "o" / "scene_mesh.ply", with_colors=True)
+        assert len(verts) > 100 and cols is not None
+        assert not (tmp_path / "o" / "_tmp_results_unaligned").exists()
         if torch.cuda.is_available():
             return
         with pytest.raises(RuntimeError, match="CUDA is not available"):
