@@ -105,10 +105,22 @@ final line:
 24. main_mesh: ``cli/main_mesh`` at SMALL (chunk 8, ``--process_res 504``)
     over phase 22's frames, dense ``--color`` and ``--sparse``: a non-empty
     finite mesh, 12 bound-forward launches a chunk, frames/s
+25. rasterize: the tile rasterizer over 2^20 seeded splats at 504² (K = 256,
+    fan 5), render and gradients on the card against the CPU, 0 host waits a
+    render, render / binning / forward + backward times and peak memory; the
+    tiled render against ``rasterize_dense``; the toy training scene's loss
+26. main_3dgs: ``cli/main_3dgs`` at SMALL (chunk 8, ``--process_res 504``)
+    over phase 22's frames, plain with ``--glb``, then with refinement,
+    training and densification: finite PLY and GLB, 12 bound-forward launches
+    a chunk, the training loss falling, frames/s, seconds a step, memory
+27. render: ``cli/render`` over phase 26's trained PLY along three written
+    poses with ``--interp``: PNGs, non-constant frames, card against CPU on
+    two frames within 1 LSB
 
 The forward phase (3) also holds the bound forward at that joint length and
 at main_mesh's chunk-8 cross length (S = 10408).
-Each driven path (7 twice, 8, 9, 13, 14, 15, 16, 18, 20, 21, 22, 23, 24 twice) sets
+Each driven path (7 twice, 8, 9, 13, 14, 15, 16, 18, 20, 21, 22, 23, 24 twice,
+25, 26 twice, 27) sets
 every launch count to 0 just before it and reads them just after.  The ``kernels`` line gives each kernel's
 launches, error, time, plain version's time, roofline bound (from the shapes
 of this run, against the H100 SXM data sheet's peaks) and, where one PyTorch
@@ -386,6 +398,17 @@ POSEGRAPH_TOL = {"dense": 1e-4, "cg": 1e-3}
 # card against CPU, the loop-on solver over the synthetic loop: the CPU
 # test's bound, 1e-4 of the scene extent
 LOOP_SOLVER_REL_TOL = 1e-4
+# the rasterizer at the CLIs' settings: 2^20 seeded splats at 504², K = 256
+# and fan 5; card against CPU within RASTER_RGB_TOL (rgb and alpha) and
+# RASTER_GRAD_REL_TOL of each attribute's largest CPU gradient
+RASTER_SPLATS, RASTER_HW = 1 << 20, 504
+RASTER_RGB_TOL, RASTER_GRAD_REL_TOL = 1e-4, 1e-3
+# main_3dgs's optimisation passes: steps chosen to keep the phase near 60 s
+GS_REFINE_ITERS, GS_TRAIN_ITERS, GS_DENSIFY_EVERY = 10, 3, 2
+# render: three written poses with two slerped cameras on each edge; card
+# against CPU on two frames, within 1 LSB on this share of the pixels
+# (tests/test_torch_main_3dgs.py's bound against the JAX package)
+RENDER_INTERP, RENDER_LSB_SHARE = 2, 0.999
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_VIEWS, TRAIN_HW = 5, 2, 4, 504
 TRAIN_ARGS = ["--preset", "small", "--mode", "dp", "--steps", str(TRAIN_STEPS),
               "--batch", str(TRAIN_BATCH), "--views", str(TRAIN_VIEWS),
@@ -2504,6 +2527,297 @@ def phase_main_mesh(path_launches: dict, image_dir: Path) -> None:
          runs=runs)
 
 
+def raster_scene(G: int, hw: int, seed: int = 0) -> list[torch.Tensor]:
+    """G seeded splats filling the view of an identity camera at hw² (depths
+    2-6, footprints of a few pixels), fx = hw: means, scales, quats, colors,
+    opacity (below 0.995), K, E on the CPU."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def u(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(*shape, generator=gen)
+
+    z = u(2.0, 6.0, G)
+    means = torch.stack([u(-0.5, 0.5, G) * z, u(-0.5, 0.5, G) * z, z], -1)
+    quats = torch.randn(G, 4, generator=gen)
+    K = torch.tensor([[float(hw), 0, hw / 2], [0, float(hw), hw / 2], [0, 0, 1]])
+    return [means, u(0.002, 0.012, G, 3), quats / quats.norm(dim=-1, keepdim=True),
+            u(0.05, 0.95, G, 3), u(0.2, 0.9, G), K, torch.eye(4)[:3]]
+
+
+def toy_train_scene() -> tuple[list[torch.Tensor], tuple[int, int]]:
+    """``tests/test_rasterize.py``'s toy training scene: 25 splats, targets
+    rendered from two views with other colors."""
+    from da3slam_tpu_torch.ops.rasterize import rasterize
+
+    hw = (64, 96)
+    rng = np.random.default_rng(6)
+    G = 25
+    means = np.stack([rng.uniform(-0.6, 0.6, G), rng.uniform(-0.36, 0.36, G),
+                      rng.uniform(2.0, 4.0, G)], -1)
+    scales = rng.uniform(0.02, 0.08, (G, 3))
+    quats = rng.normal(size=(G, 4))
+    quats /= np.linalg.norm(quats, axis=-1, keepdims=True)
+    colors = rng.uniform(0.1, 0.9, (G, 3))
+    opacity = rng.uniform(0.3, 0.9, G)
+    K = np.array([[80.0, 0, hw[1] / 2], [0, 80.0, hw[0] / 2], [0, 0, 1.0]])
+    E = np.eye(4)[:3]
+    E2 = np.array([[1, 0, 0, 0.05], [0, 1, 0, 0.0], [0, 0, 1, 0.02]])
+    gt = np.random.default_rng(7).uniform(0.1, 0.9, colors.shape)
+    t = [torch.as_tensor(a, dtype=torch.float32, device="cuda")
+         for a in (means, scales, quats, colors, opacity, K, E, E2, gt)]
+    with torch.no_grad():
+        images = torch.stack([rasterize(*t[:3], t[8], t[4], t[5], e, hw)[0] for e in (t[6], t[7])])
+    return [*t[:5], images, torch.stack([t[5], t[5]]), torch.stack([t[6], t[7]])], hw
+
+
+def phase_rasterize(path_launches: dict) -> None:
+    """The tile rasterizer alone on the card: 2^20 seeded splats at 504², K =
+    256, fan 5 (what ``main_3dgs --train_iters`` and ``render`` run), held
+    against the same render and gradients on the CPU; host waits of a render;
+    render, binning (sort included) and forward + backward times (CUDA
+    events, median) and peak memory; the tiled render against
+    ``rasterize_dense`` on a 40-splat scene; the toy training scene's loss."""
+    from da3slam_tpu_torch.ops.rasterize import bin_splats, project_gaussians, rasterize, \
+        rasterize_dense, sort_keys
+    from da3slam_tpu_torch.ops.splats import train_splats
+
+    hw = (RASTER_HW, RASTER_HW)
+    scene = raster_scene(RASTER_SPLATS, RASTER_HW)
+    target = torch.rand(*hw, 3, generator=torch.Generator().manual_seed(1))
+
+    def fwd_bwd(device):
+        splats = [x.to(device).requires_grad_(True) for x in scene[:5]]
+        rgb, alpha, aux = rasterize(*splats, *(x.to(device) for x in scene[5:]), hw)
+        torch.mean((rgb - target.to(device)) ** 2).backward()
+        return rgb.detach(), alpha.detach(), aux, [p.grad for p in splats]
+
+    with counted(path_launches, "rasterize"):
+        card = fwd_bwd("cuda")
+        torch.cuda.synchronize()
+    launches = path_launches["rasterize"]
+    t0 = time.perf_counter()
+    host = fwd_bwd("cpu")
+    cpu_s = time.perf_counter() - t0
+    rgb_err = max((card[0].cpu() - host[0]).abs().max().item(),
+                  (card[1].cpu() - host[1]).abs().max().item())
+    grad_err = {name: ((g.cpu() - h).abs().max() / h.abs().max()).item()
+                for name, g, h in zip(("means", "scales", "quats", "colors", "opacity"),
+                                      card[3], host[3])}
+    tables_equal = torch.equal(card[2]["overflow"].cpu(), host[2]["overflow"]) and \
+        int(card[2]["n_binned"]) == int(host[2]["n_binned"])
+
+    dev = [x.to("cuda") for x in scene]
+    where: dict = {}
+    first_where: dict = {}
+    with torch.no_grad():
+        # the first render of a run is counted apart: the waits counted
+        # are those of every render after it
+        first_syncs = _count_syncs(lambda: rasterize(*dev, hw), first_where)
+        syncs = _count_syncs(lambda: rasterize(*dev, hw), where)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        render_ms = cuda_ms(lambda: rasterize(*dev, hw), 5)
+        render_peak = torch.cuda.max_memory_allocated()
+        proj = project_gaussians(*dev[:3], dev[5], dev[6], hw)
+        bin_ms = cuda_ms(lambda: bin_splats(proj, hw), 5)
+        # the sort alone, on keys of the binning's length and kind: tile ids
+        # over the 32² tiles and the dropped id, this scene's depths
+        n_tiles = ((RASTER_HW + 15) // 16) ** 2
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        keys = sort_keys(torch.randint(0, n_tiles + 1, (RASTER_SPLATS * 25,), device="cuda",
+                                       generator=gen), proj.depth.repeat_interleave(25))
+        sort_ms = cuda_ms(lambda: torch.sort(keys, stable=True), 5)
+        del keys
+    splats = [x.requires_grad_(True) for x in (t.clone() for t in dev[:5])]
+    tgt = target.to("cuda")
+
+    def step():
+        rgb, _, _ = rasterize(*splats, dev[5], dev[6], hw)
+        torch.mean((rgb - tgt) ** 2).backward()
+
+    torch.cuda.reset_peak_memory_stats()
+    fwd_bwd_ms = cuda_ms(step, 5)
+    fwd_bwd_peak = torch.cuda.max_memory_allocated()
+    state = gpu_state()
+
+    small = [t.to("cuda") for t in raster_scene(40, 96, seed=3)]
+    small[1] = small[1] * 6.0  # footprints over several tiles
+    with torch.no_grad():
+        rgb_t, a_t, aux_t = rasterize(*small, (80, 96), max_per_tile=64, fan=9)
+        rgb_d, a_d = rasterize_dense(*small, (80, 96))
+    dense_err = max((rgb_t - rgb_d).abs().max().item(), (a_t - a_d).abs().max().item())
+
+    args, toy_hw = toy_train_scene()
+    toy = train_splats(*args, toy_hw, iters=30, max_per_tile=64, fan=9)
+    toy_losses = toy.losses.cpu().tolist()
+
+    emit("rasterize", splats=RASTER_SPLATS, hw=list(hw), max_per_tile=256, fan=5,
+         binned=int(card[2]["n_binned"]), overflow=int(card[2]["overflow"].sum()),
+         card_vs_cpu_rgb_max_abs=rgb_err, rgb_tol=RASTER_RGB_TOL,
+         card_vs_cpu_grad_rel=grad_err, grad_rel_tol=RASTER_GRAD_REL_TOL,
+         card_vs_cpu_binning_equal=tables_equal, cpu_fwd_bwd_s=cpu_s,
+         host_syncs_a_render=syncs, host_syncs_at=where, host_syncs_first_render=first_syncs,
+         host_syncs_first_render_at=first_where,
+         render_ms=render_ms, bin_ms=bin_ms, bin_share=bin_ms / render_ms, sort_ms=sort_ms,
+         sort_share=sort_ms / render_ms,
+         render_peak_bytes=render_peak, fwd_bwd_ms=fwd_bwd_ms, fwd_bwd_peak_bytes=fwd_bwd_peak,
+         gpu_state=state, tiled_vs_dense_max_abs=dense_err, dense_binned=int(aux_t["n_binned"]),
+         toy_losses_first_last=[toy_losses[0], toy_losses[-1]], kernel_launches=launches)
+    if rgb_err > RASTER_RGB_TOL or max(grad_err.values()) > RASTER_GRAD_REL_TOL:
+        fail(f"rasterize: card against CPU, rgb {rgb_err}, gradients {grad_err}")
+    if not tables_equal:
+        fail("rasterize: the card's binning counts differ from the CPU's")
+    if syncs:
+        fail(f"rasterize: {syncs} host waits in a render at {where}")
+    if dense_err > 2e-5 or int(aux_t["overflow"].sum()):
+        fail(f"rasterize: tiled against dense {dense_err}")
+    if not toy_losses[-1] < 0.6 * toy_losses[0]:
+        fail(f"rasterize: the toy scene's loss went {toy_losses[0]} -> {toy_losses[-1]}")
+    if launches != expected_launches():
+        fail(f"rasterize: launches {launches}")
+
+
+@contextlib.contextmanager
+def timed_calls(module, names: tuple, seconds: dict):
+    """Wrap ``module.<name>`` so that each call's wall time (the device
+    synced after it) adds to ``seconds[name]``; restored on exit."""
+    saved = {n: getattr(module, n) for n in names}
+
+    def wrap(name, fn):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return call
+
+    for n in names:
+        setattr(module, n, wrap(n, saved[n]))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+
+
+def phase_main_3dgs(path_launches: dict, image_dir: Path) -> Path:
+    """``cli/main_3dgs`` at SMALL, full width (chunk 8, ``--process_res 504``)
+    over phase 22's 31 frames: once plain with ``--glb``, once with
+    ``--refine_iters``, ``--train_iters`` and ``--densify_every``: finite PLY
+    and GLB, 12 bound-forward launches a chunk, the training loss falling;
+    frames/s, the seconds of each pass and a train step, peak memory.
+    Returns the trained PLY."""
+    from da3slam_tpu_torch.cli import main_3dgs
+    from da3slam_tpu_torch.inout.export3d import read_3dgs_ply
+    from da3slam_tpu_torch.ops import splats
+
+    runs = {}
+    opt_flags = ["--refine_iters", str(GS_REFINE_ITERS), "--train_iters", str(GS_TRAIN_ITERS),
+                 "--densify_every", str(GS_DENSIFY_EVERY)]
+    for tag, flags in (("plain", ["--glb", str(WORK / "scene.glb")]), ("train", opt_flags)):
+        out = WORK / f"scene_3dgs_{tag}.ply"
+        seconds: dict = {}
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        with counted(path_launches, f"main_3dgs_{tag}"), \
+                timed_calls(splats, ("refine_splats", "train_splats"), seconds):
+            t0 = time.perf_counter()
+            res = main_3dgs.main(["--image_dir", str(image_dir), "--chunk_size", str(MESH_CHUNK),
+                                  "--process_res", "504", "--output", str(out)] + flags)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = path_launches[f"main_3dgs_{tag}"]
+        expected = expected_launches(flash_attn_bound_fwd=12 * MESH_CHUNKS)
+        gs = read_3dgs_ply(out)
+        finite = all(np.isfinite(v).all() for v in gs.values())
+        run = {"wall_s": wall, "frames_per_s": N_FRAMES / wall, "splats": res["n"],
+               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+               "pass_s": seconds, "finite": finite, "kernel_launches": launches,
+               "expected_launches": expected}
+        if tag == "plain":
+            glb = (WORK / "scene.glb").read_bytes()
+            run["glb_bytes"] = len(glb)
+            n_json = int.from_bytes(glb[12:16], "little")
+            glb_pts = np.frombuffer(glb[28 + n_json:], np.float32,
+                                    count=3 * json.loads(glb[20:20 + n_json])["accessors"][0]["count"])
+            run["glb_points"] = len(glb_pts) // 3
+            if glb[:4] != b"glTF" or not len(glb_pts) or not np.isfinite(glb_pts).all():
+                fail(f"main_3dgs: the GLB holds {len(glb_pts) // 3} points, finite "
+                     f"{np.isfinite(glb_pts).all()}")
+        else:
+            losses = res["train"].cpu().tolist()
+            run.update(train_losses=losses, refine_losses=res["refine"].cpu().tolist(),
+                       train_step_s=seconds["train_splats"] / GS_TRAIN_ITERS,
+                       refine_step_s=seconds["refine_splats"] / GS_REFINE_ITERS)
+            if not losses[-1] < losses[0]:
+                fail(f"main_3dgs: the training loss went {losses}")
+        runs[tag] = run
+        if not finite or res["n"] < 100_000:
+            fail(f"main_3dgs {tag}: {res['n']} splats, finite={finite}")
+        if launches != expected:
+            fail(f"main_3dgs {tag}: launches {launches} != {expected}")
+    emit("main_3dgs", frames=N_FRAMES, preset="small", chunk_size=MESH_CHUNK, chunks=MESH_CHUNKS,
+         process_res=504, stride=2, refine_iters=GS_REFINE_ITERS, train_iters=GS_TRAIN_ITERS,
+         densify_every=GS_DENSIFY_EVERY, cross_seq_len=MESH_CHUNK * 1301,
+         wall_includes="building SMALL on the CPU, its upload, JPEG decode, the exports",
+         gpu_state=gpu_state(), runs=runs)
+    return WORK / "scene_3dgs_train.ply"
+
+
+def phase_render(path_launches: dict, splats_ply: Path) -> None:
+    """``cli/render`` over phase 26's trained PLY along three written c2w
+    poses with ``--interp``: the PNG count, non-constant frames, frames/s;
+    then the first two poses rendered on the CPU, held against the card's
+    frames of those poses within 1 LSB."""
+    from PIL import Image
+
+    from da3slam_tpu_torch.cli import render
+    from da3slam_tpu_torch.core.transforms import so3_exp
+
+    poses = np.stack([np.eye(4)] * 3)
+    poses[1, :3, 3] = [0.05, 0.0, 0.02]
+    poses[2, :3, :3] = so3_exp(torch.tensor([0.0, 0.08, 0.02])).numpy()
+    pose_file = WORK / "render_poses.txt"
+    with open(pose_file, "w") as f:
+        for T in poses:
+            f.write(" ".join(f"{v:.8f}" for v in T.reshape(-1)) + "\n")
+    pair_file = WORK / "render_pair.txt"
+    pair_file.write_text("".join(pose_file.read_text().splitlines(True)[:2]))
+    out, host_out = WORK / "render", WORK / "render_cpu"
+    common = ["--splats", str(splats_ply), "--height", "504", "--width", "504"]
+    with counted(path_launches, "render"):
+        t0 = time.perf_counter()
+        n = render.main(common + ["--poses", str(pose_file), "--output_dir", str(out),
+                                  "--interp", str(RENDER_INTERP)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = path_launches["render"]
+    t0 = time.perf_counter()
+    render.main(common + ["--poses", str(pair_file), "--output_dir", str(host_out),
+                          "--device", "cpu"])
+    cpu_s = time.perf_counter() - t0
+    frames = [np.asarray(Image.open(p)) for p in sorted(out.glob("*.png"))]
+    stds = [float(f.std()) for f in frames]
+    vs_cpu = []
+    for card_i, host_i in ((0, 0), (RENDER_INTERP + 1, 1)):
+        a = frames[card_i].astype(int)
+        b = np.asarray(Image.open(host_out / f"{host_i:06d}.png")).astype(int)
+        vs_cpu.append({"max_lsb": int(np.abs(a - b).max()),
+                       "share_within_1_lsb": float((np.abs(a - b) <= 1).mean())})
+    emit("render", frames=n, pngs=len(frames), hw=[504, 504], interp=RENDER_INTERP,
+         wall_s=wall, frames_per_s=n / wall, frame_stds=stds, cpu_two_frames_s=cpu_s,
+         card_vs_cpu=vs_cpu, lsb_share_bound=RENDER_LSB_SHARE, kernel_launches=launches)
+    if n != len(frames) or n != 3 + 2 * RENDER_INTERP:
+        fail(f"render: {n} frames, {len(frames)} PNGs")
+    if min(stds) <= 0.0:
+        fail(f"render: a constant frame (stds {stds})")
+    if any(d["share_within_1_lsb"] < RENDER_LSB_SHARE for d in vs_cpu):
+        fail(f"render: card against CPU {vs_cpu}")
+    if launches != expected_launches():
+        fail(f"render: launches {launches}")
+
+
 SOURCES = {
     "flash_attn_bound_fwd": ("da3slam_tpu_torch/ops/csrc/flash_attn_fwd.cu",
                              "da3slam_tpu/ops/flash_attention.py:116", "cross"),
@@ -2558,6 +2872,9 @@ def main() -> None:
     mesh_frames = phase_preprocess(path_launches)
     phase_tsdf(path_launches)
     phase_main_mesh(path_launches, mesh_frames)
+    phase_rasterize(path_launches)
+    trained = phase_main_3dgs(path_launches, mesh_frames)
+    phase_render(path_launches, trained)
     kernels = []
     for name, (source, replaces, headline) in SOURCES.items():
         by_path = {path: counts[name] for path, counts in path_launches.items()}

@@ -1,6 +1,6 @@
-"""Pinhole camera geometry: backprojection and the depth-scale median
-(counterpart of ``da3slam_tpu/core/geometry.py``), and the median as numpy
-and JAX define it.
+"""Pinhole camera geometry: backprojection, projection and the depth-scale
+median (counterpart of ``da3slam_tpu/core/geometry.py``), and the median as
+numpy and JAX define it.
 
 Pixel convention: ``u`` is the column index, ``v`` the row index, rays are
 ``K^-1 @ [u, v, 1]`` (no half-pixel offset).
@@ -53,6 +53,30 @@ def backproject_depth(
     return torch.einsum("...ij,...hwj->...hwi", Rw, cam) + tw[..., None, None, :]
 
 
+@highest_precision()
+def project_points(
+    points: torch.Tensor,
+    K: torch.Tensor,
+    extrinsics: torch.Tensor | None = None,
+    eps: float = 1e-8,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """3-D points ``[..., N, 3]`` (world coordinates, or camera coordinates
+    without w2c ``extrinsics [..., 3, 4]``) → ``(uv [..., N, 2], z [..., N])``
+    through ``K [..., 3, 3]``; the inverse of ``backproject_depth``."""
+    if extrinsics is not None:
+        R, t = extrinsics[..., :3, :3], extrinsics[..., :3, 3]
+        cam = points @ R.transpose(-1, -2) + t[..., None, :]
+    else:
+        cam = points
+    z = cam[..., 2]
+    xy = cam[..., :2] / torch.clamp_min(z[..., None], eps)
+    fx, fy = K[..., 0, 0], K[..., 1, 1]
+    cx, cy = K[..., 0, 2], K[..., 1, 2]
+    u = fx[..., None] * xy[..., 0] + cx[..., None]
+    v = fy[..., None] * xy[..., 1] + cy[..., None]
+    return torch.stack([u, v], dim=-1), z
+
+
 def depth_scale_ratio(
     depth_prev: torch.Tensor,
     depth_cur: torch.Tensor,
@@ -90,7 +114,11 @@ def depth_scale_ratio(
 
 def median(x: torch.Tensor) -> torch.Tensor:
     """Median of all elements, as ``jnp.median`` takes it: for an even count
-    the mean of the two middle values (``torch.median`` returns the lower)."""
-    s = torch.sort(x.reshape(-1)).values
+    the mean of the two middle values (``torch.median`` returns the lower),
+    and NaN if any element is NaN (``torch.sort`` puts NaN last).  No host
+    wait, and no size limit (``torch.quantile`` refuses 2^24 elements)."""
+    flat = x.reshape(-1)
+    s = torch.sort(flat).values
     n = s.shape[0]
-    return 0.5 * (s[(n - 1) // 2] + s[n // 2])
+    med = 0.5 * (s[(n - 1) // 2] + s[n // 2])
+    return torch.where(torch.isnan(flat).any(), torch.nan, med)

@@ -1,6 +1,6 @@
 """SE(3) / Sim(3) transform algebra on batched torch tensors (counterpart of
-``da3slam_tpu/core/transforms.py``; the subset the SLAM, loop-closure and
-streaming paths use).
+``da3slam_tpu/core/transforms.py``; the subset the SLAM, loop-closure,
+streaming and 3DGS paths use).
 
 Conventions:
   * extrinsics are world-to-camera (w2c) ``[..., 3, 4]`` in OpenCV convention
@@ -203,3 +203,42 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
     row1 = torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], -1)
     row2 = torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1)
     return torch.stack([row0, row1, row2], dim=-2)
+
+
+def rotmat_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """``[..., 3, 3]`` → quaternion (w, x, y, z), branch-free: the four
+    Shepperd candidates, the best-conditioned one picked by ``argmax``, the
+    sign fixed so that w >= 0."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    lead = [1 + tr, 1 + m00 - m11 - m22, 1 + m11 - m00 - m22, 1 + m22 - m00 - m11]
+    root = [torch.sqrt(torch.clamp_min(x, 1e-12)) for x in lead]
+    qw = torch.stack([root[0] / 2, (m21 - m12) / (2 * root[1]),
+                      (m02 - m20) / (2 * root[2]), (m10 - m01) / (2 * root[3])], -1)
+    qx = torch.stack([(m21 - m12) / (2 * root[0]), root[1] / 2,
+                      (m01 + m10) / (2 * root[2]), (m02 + m20) / (2 * root[3])], -1)
+    qy = torch.stack([(m02 - m20) / (2 * root[0]), (m01 + m10) / (2 * root[1]),
+                      root[2] / 2, (m12 + m21) / (2 * root[3])], -1)
+    qz = torch.stack([(m10 - m01) / (2 * root[0]), (m02 + m20) / (2 * root[1]),
+                      (m12 + m21) / (2 * root[2]), root[3] / 2], -1)
+    idx = torch.argmax(torch.stack(lead, -1), dim=-1)
+    q = torch.stack([qw, qx, qy, qz], dim=-2)  # [..., 4 components, 4 candidates]
+    q = torch.gather(q, -1, idx[..., None, None].expand(*idx.shape, 4, 1))[..., 0]
+    return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
+
+
+def slerp_rotations(Ra: torch.Tensor, Rb: torch.Tensor, t: float | torch.Tensor) -> torch.Tensor:
+    """Spherical interpolation between rotation matrices ``[..., 3, 3]``
+    (shortest arc, through quaternions; t=0 → Ra, t=1 → Rb)."""
+    qa, qb = rotmat_to_quat(Ra), rotmat_to_quat(Rb)
+    dot = torch.sum(qa * qb, dim=-1, keepdim=True)
+    qb = torch.where(dot < 0, -qb, qb)  # shortest arc
+    dot = torch.clamp_max(torch.abs(dot), 1.0)
+    theta = torch.arccos(dot)
+    sin_t = torch.sin(theta)
+    # lerp where the two are nearly parallel (sin underflows)
+    wa = torch.where(sin_t > 1e-6, torch.sin((1 - t) * theta) / sin_t, 1 - t)
+    wb = torch.where(sin_t > 1e-6, torch.sin(t * theta) / sin_t, t)
+    return quat_to_rotmat(wa * qa + wb * qb)

@@ -7,8 +7,8 @@ state-dict names are the DA3/DINOv2 ones (``models/convert.py``).  The
 working dtype is bf16 on CUDA and f32 on the CPU.  ``from_pretrained`` takes
 a preset name or a checkpoint directory (``models/weights.py``);
 ``quantize("w8a8")`` returns a copy whose encoder GEMMs run int8.
-``inference(export_dir=...)`` writes the ``mini_npz`` export; the ``glb``
-export, the nested tier and ``pytorch_model.bin`` files are not ported yet.
+``inference(export_dir=...)`` writes the ``mini_npz`` or the ``glb``
+export; the nested tier and ``pytorch_model.bin`` files are not ported yet.
 """
 
 from __future__ import annotations
@@ -207,14 +207,12 @@ class DepthAnything3:
         model's device and returns without waiting for the forward; otherwise
         the fields are fetched to numpy.  ``export_dir`` also writes the
         prediction there in ``export_format``: ``"mini_npz"`` is
-        ``prediction.npz`` (depth, conf, extrinsics, intrinsics).
+        ``prediction.npz`` (depth, conf, extrinsics, intrinsics), ``"glb"``
+        is ``scene.glb``, the fused point cloud (``inout/export3d.py``).
         """
         if process_res_method != "upper_bound_resize":
             raise ValueError(f"unsupported process_res_method {process_res_method!r}")
-        if export_dir is not None and export_format != "mini_npz":
-            if export_format == "glb":
-                raise NotImplementedError("the glb export is not ported yet (ROADMAP queue 1, "
-                                          "item 12, its 3DGS half): use export_format='mini_npz'")
+        if export_dir is not None and export_format not in ("mini_npz", "glb"):
             raise ValueError(f"unknown export_format {export_format!r}")
         if isinstance(image, torch.Tensor):
             raw = image if image.ndim == 4 else image[None]
@@ -255,12 +253,22 @@ class DepthAnything3:
             fields = {k: v.cpu().numpy() for k, v in fields.items()}
         pred = Prediction(**fields)
         if export_dir is not None:
-            out = Path(export_dir)
-            out.mkdir(parents=True, exist_ok=True)
-            np.savez_compressed(out / "prediction.npz", **{
-                k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
-                for k, v in fields.items() if k in ("depth", "conf", "extrinsics", "intrinsics")})
+            _export({k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+                     for k, v in fields.items()}, Path(export_dir), export_format)
         return pred
+
+
+def _export(fields: dict, out: Path, export_format: str) -> None:
+    """Write numpy ``fields`` of a prediction to ``out`` as the JAX package's
+    ``_export`` does."""
+    out.mkdir(parents=True, exist_ok=True)
+    if export_format == "mini_npz":
+        np.savez_compressed(out / "prediction.npz", **{
+            k: fields[k] for k in ("depth", "conf", "extrinsics", "intrinsics")})
+    else:
+        from da3slam_tpu_torch.inout.export3d import export_glb
+
+        export_glb(Prediction(**fields), out / "scene.glb")
 
 
 def _pose_scale_ratio(ext_target: torch.Tensor, ext_pred: torch.Tensor) -> torch.Tensor:

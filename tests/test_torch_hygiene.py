@@ -1,6 +1,8 @@
 """The port stands alone: importing every ``da3slam_tpu_torch`` module (and
 ``chip_smoke.py``) pulls in neither JAX, nor the JAX package, nor the
-``safetensors`` package (the port reads and writes that format itself)."""
+``safetensors`` package (the port reads and writes that format itself); no
+module reaches the JAX package's native library either (the port's exporters
+are its numpy path)."""
 
 import subprocess
 import sys
@@ -29,6 +31,9 @@ LOOP_SLICE = ("cli.streaming", "ops.posegraph", "slam.evaluate", "slam.loop",
 # the dense-mapping slice: preprocessing and the TSDF mesh
 MESH_SLICE = ("cli.main_mesh", "cli.preprocess", "inout.mesh", "ops.tsdf",
               "preprocess.device", "preprocess.host")
+# the 3DGS slice: rasterizer, splats, distortion, exporters and their CLIs
+GS_SLICE = ("cli.main_3dgs", "cli.render", "core.geometry", "inout.export3d",
+            "ops.distortion", "ops.rasterize", "ops.splats")
 
 
 def test_no_module_imports_jax_or_the_jax_package():
@@ -37,7 +42,21 @@ def test_no_module_imports_jax_or_the_jax_package():
     assert int(out[0]) >= 65  # every module of the port was imported
     assert out[1] == "[]"
     walked = out[2].split(",")
-    assert all(f"da3slam_tpu_torch.{m}" in walked for m in LOOP_SLICE + MESH_SLICE)
+    assert all(f"da3slam_tpu_torch.{m}" in walked for m in LOOP_SLICE + MESH_SLICE + GS_SLICE)
+
+
+@pytest.mark.parametrize("module", GS_SLICE)
+def test_3dgs_slice_imports_alone(module):
+    """Each module of the 3DGS slice, imported by itself in a fresh process,
+    loads neither JAX, nor the JAX package, nor a shared library of it."""
+    code = (f"import sys, da3slam_tpu_torch.{module}\n"
+            "bad = sorted(m for m in sys.modules if m in ('jax', 'da3slam_tpu') "
+            "or m.startswith(('jax.', 'jaxlib', 'da3slam_tpu.')))\n"
+            "maps = open('/proc/self/maps').read() if sys.platform == 'linux' else ''\n"
+            "print(bad, 'libda3pc' in maps)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120, check=True).stdout.split("\n")[0]
+    assert out == "[] False"
 
 
 @pytest.mark.parametrize("path", sorted(p.relative_to(ROOT).as_posix() for p in
@@ -46,5 +65,6 @@ def test_no_module_imports_jax_or_the_jax_package():
 def test_source_names_no_jax_import(path):
     src = (ROOT / path).read_text()
     for banned in ("import jax", "from jax", "from da3slam_tpu.", "import da3slam_tpu\n",
-                   "import safetensors", "from safetensors"):
+                   "import safetensors", "from safetensors", "da3slam_tpu.native",
+                   "da3slam_tpu import native", "libda3pc"):
         assert banned not in src, f"{path} contains {banned!r}"

@@ -377,13 +377,16 @@ class TestInferenceExport:
             np.testing.assert_allclose(zt[key], zj[key], atol=1e-4, rtol=1e-4)
 
     def test_glb_and_unknown_formats_refused(self, tmp_path, tiny_weights):
+        """Unknown formats are refused before the forward; ``glb``, refused
+        until the 3DGS half of mapping was ported, now writes ``scene.glb``
+        (``tests/test_torch_export3d.py`` holds its bytes to the JAX package)."""
         model = DepthAnything3(get_preset("tiny"), tiny_weights[1])
         imgs = make_frames(2)
-        with pytest.raises(NotImplementedError, match="item 12"):
-            model.inference(imgs, process_res=70, export_dir=tmp_path, export_format="glb")
         with pytest.raises(ValueError, match="export_format"):
             model.inference(imgs, process_res=70, export_dir=tmp_path, export_format="ply")
-        assert not (tmp_path / "prediction.npz").exists()
+        assert not any(tmp_path.iterdir())
+        model.inference(imgs, process_res=70, export_dir=tmp_path, export_format="glb")
+        assert [p.name for p in tmp_path.iterdir()] == ["scene.glb"]
 
 
 class TestHostIO:
