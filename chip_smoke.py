@@ -116,11 +116,30 @@ final line:
 27. render: ``cli/render`` over phase 26's trained PLY along three written
     poses with ``--interp``: PNGs, non-constant frames, card against CPU on
     two frames within 1 LSB
+28. nested_checkpoint: the nested tier at full width (giant + large, seeds 0
+    and 1) made on the card, its torch-style state dict held to the published
+    nested manifest, written as a nested checkpoint directory and loaded back
+    bit for bit (bytes, seconds to write and to load)
+29. main_slam_nested: ``cli/main_slam`` with ``Weights.DA3`` at that
+    directory over the 31 frames (chunk 15: three chunks): 64 bound-forward
+    launches a chunk (40 giant blocks, 24 large on the reference view), finite
+    poses, each chunk's metric scale, load and run apart, peak memory; then
+    export → split → import in memory gives bit-equal outputs on one chunk
+30. nested_parity: giant and large widths cut to 4 blocks each (LayerScale
+    0.1, depths of order 1), 2 unrelated frames at 518², f32 on the card
+    against the CPU within MODEL_PARITY_TOL (depth, conf, poses, intrinsics,
+    metric scale); the CPU run writes a golden
+31. parity_cli: ``cli/parity`` on the card (bf16) against that golden: PASS
+32. main_conf: ``cli/main_conf --stats_only`` at SMALL over 8 frames
+33. evaluate: ``cli/evaluate`` on phase 29's trajectory against phase 9's,
+    and on a written C3VD-layout sequence (16-bit depth TIFFs, ``pose.txt``)
+    whose known answers (the scales) it must recover
 
-The forward phase (3) also holds the bound forward at that joint length and
-at main_mesh's chunk-8 cross length (S = 10408).
+The forward phase (3) also holds the bound forward at that joint length, at
+main_mesh's chunk-8 cross length (S = 10408) and at the nested tier's giant
+and metric shapes.
 Each driven path (7 twice, 8, 9, 13, 14, 15, 16, 18, 20, 21, 22, 23, 24 twice,
-25, 26 twice, 27) sets
+25, 26 twice, 27, 29, 32) sets
 every launch count to 0 just before it and reads them just after.  The ``kernels`` line gives each kernel's
 launches, error, time, plain version's time, roofline bound (from the shapes
 of this run, against the H100 SXM data sheet's peaks) and, where one PyTorch
@@ -166,6 +185,14 @@ KERNEL_CASES = [
 LARGE_CASES = [
     ("large_intra", torch.bfloat16, (15, 1301, 16, 64)),
     ("large_cross", torch.bfloat16, (1, 19515, 16, 64)),
+]
+# what the nested tier's main_slam gives the bound forward: giant (24 heads)
+# within each of 15 views and across the chunk, and the large metric model on
+# the reference view alone (16 heads over one view's 1301 tokens)
+GIANT_CASES = [
+    ("giant_intra", torch.bfloat16, (15, 1301, 24, 64)),
+    ("giant_cross", torch.bfloat16, (1, 19515, 24, 64)),
+    ("metric_single", torch.bfloat16, (1, 1301, 16, 64)),
 ]
 # lengths around the bf16 kernel's tiles (64 query rows a warpgroup, 128 a CTA,
 # 128 keys a stage): one row, one short of, exactly and one past each edge;
@@ -409,6 +436,37 @@ GS_REFINE_ITERS, GS_TRAIN_ITERS, GS_DENSIFY_EVERY = 10, 3, 2
 # against CPU on two frames, within 1 LSB on this share of the pixels
 # (tests/test_torch_main_3dgs.py's bound against the JAX package)
 RENDER_INTERP, RENDER_LSB_SHARE = 2, 0.999
+# The nested tier at full width: giant (any-view, seed 0) and large (metric,
+# seed 1) made on the card, written as a torch-style nested checkpoint
+# directory and run by main_slam over the 31 frames (chunk 15, overlap 1: three
+# chunks).  Each chunk runs the bound forward once a giant block and once a
+# large block on the reference view
+NESTED_NAME = "DA3NESTED-GIANT-LARGE-1.1"
+NESTED_EXPECTED_LAUNCHES = (40 + 24) * 3
+# card against CPU in f32 (MODEL_PARITY_TOL) and the parity CLI: giant and
+# large widths cut to 4 blocks each, 2 frames at 518²
+NESTED_PARITY_DEPTH = 4
+# Random weights put the depth channel's pre-activation at -25..49 at giant
+# width (the head's He init over 384-1536 channels), so 1% of the depths sit
+# in softplus's exponential tail (1e-11 m), where a bf16 error of the
+# pre-activation is the same relative error of the depth: the parity CLI's
+# bf16 run measured depth AbsRel 0.0224 against the f32 golden on an H100
+# (the plain bf16 path on the CPU, no kernel: 0.054).  A trained head outputs depths of
+# order 1 m: the reduced nested model's last conv scales that channel by 0.05
+# and biases it to 2 (depths 1.1-4.5; the CPU's bf16 AbsRel 0.004), as
+# phase_train_grad_parity moves the DPT biases off the ReLUs' kink
+NESTED_DEPTH_WEIGHT_SCALE, NESTED_DEPTH_BIAS = 0.05, 2.0
+# Likewise the poses: at the initial LayerScale (1e-5) the camera token is the
+# cls token to 1e-5, so two views' poses differ by 1e-9 while bf16 rounds the
+# raw translations at ~1e-5, and the parity CLI's trans_rel on two drifted
+# frames was noise over noise (0.0009 and 0.65 in two H100 runs).  The reduced
+# model takes LayerScale 0.1 (a trained DINOv2's order) and two unrelated
+# frames (make_frames seeds 0 and 5): a relative translation of 4.6e-4, and
+# trans_rel 0.0388 against the bound's 0.05 in the card's bf16 (the same in
+# two H100 runs; 0.014 in the CPU's bf16)
+NESTED_PARITY_LAYERSCALE, NESTED_PARITY_FRAME_SEEDS = 0.1, (0, 5)
+# main_conf's chunk (its default) at SMALL: 12 bound-forward launches
+CONF_CHUNK = 8
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_VIEWS, TRAIN_HW = 5, 2, 4, 504
 TRAIN_ARGS = ["--preset", "small", "--mode", "dp", "--steps", str(TRAIN_STEPS),
               "--batch", str(TRAIN_BATCH), "--views", str(TRAIN_VIEWS),
@@ -752,7 +810,7 @@ def phase_forwards() -> dict:
     for kernel, fwd, ref, cases in (
         ("flash_attn_bound_fwd", fa.flash_attention_bound, fa.flash_attention_bound_reference,
          [(n, d, s, 1.0) for n, d, s in KERNEL_CASES + LARGE_CASES + JOINT_CASES
-          + MESH_CASES + EDGE_CASES + F32_EDGE_CASES + F32_LONG_CASES]),
+          + MESH_CASES + GIANT_CASES + EDGE_CASES + F32_EDGE_CASES + F32_LONG_CASES]),
         ("flash_attn_stable_fwd", fa.flash_attention_stable, fa.flash_attention_stable_reference,
          STABLE_CASES),
     ):
@@ -2818,6 +2876,390 @@ def phase_render(path_launches: dict, splats_ply: Path) -> None:
         fail(f"render: launches {launches}")
 
 
+@contextlib.contextmanager
+def patched(cls, name: str, make):
+    """Replace ``cls.<name>`` by ``make(original)`` (the original as the
+    attribute was read from the class); restored on exit."""
+    saved = cls.__dict__[name]
+    setattr(cls, name, make(getattr(cls, name)))
+    try:
+        yield
+    finally:
+        setattr(cls, name, saved)
+
+
+def schema_diff(sd: dict, schema: dict) -> dict:
+    """A state dict's names and shapes against a published schema manifest
+    (``tests/test_torch_model.py``'s check): what it has beyond the schema
+    must be the schema's ``expected_missing``, what the schema has beyond it
+    the DINOv2 mask tokens, and every shared name must have its shape."""
+    keys = schema["keys"]
+    extra = sorted(set(sd) - set(keys))
+    lacking = sorted(set(keys) - set(sd))
+    shapes = [k for k in set(sd) & set(keys) if list(sd[k].shape) != keys[k]]
+    ok = (extra == sorted(schema["expected_missing"]) and not shapes
+          and all(k.endswith("mask_token") for k in lacking))
+    return {"ok": ok, "beyond_schema": extra, "schema_only": lacking, "shape_mismatch": shapes}
+
+
+def phase_nested_checkpoint() -> tuple[Path, object]:
+    """The nested tier at full width (giant + large, 1542 M parameters) made
+    on the card from seeds 0 and 1, exported torch-style, held to the
+    published nested manifest (``tests/fixtures/torch_schema_nested_giant.json``)
+    and written as a nested checkpoint directory (``model.`` / ``metric_model.``
+    prefixes, a ``config.json`` with a section each); then loaded back with
+    ``from_pretrained``: a ``DepthAnything3Nested`` whose every tensor equals
+    the built one's.  Bytes and seconds to write and to load.  Returns the
+    directory and the built model."""
+    import dataclasses
+    import shutil
+
+    from da3slam_tpu_torch.models.config import get_preset
+    from da3slam_tpu_torch.models.da3 import DepthAnything3, init_params
+    from da3slam_tpu_torch.models.nested import DepthAnything3Nested, export_torch_style_nested
+    from da3slam_tpu_torch.models.weights import save_file
+
+    t0 = time.perf_counter()
+    subs = []
+    for tier, seed in (("giant", 0), ("large", 1)):
+        cfg = get_preset(tier)
+        subs.append(DepthAnything3(cfg, init_params(cfg, seed, device="cuda")))
+    nested = DepthAnything3Nested(*subs)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    sd = export_torch_style_nested(nested)
+    schema = json.loads((ROOT / "tests" / "fixtures" / "torch_schema_nested_giant.json").read_text())
+    diff = schema_diff(sd, schema)
+
+    ckpt = WORK / "nested_ckpt" / NESTED_NAME
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ckpt.mkdir(parents=True)
+    t0 = time.perf_counter()
+    save_file(sd, ckpt / "model.safetensors")
+    (ckpt / "config.json").write_text(json.dumps({
+        "model": dataclasses.asdict(nested.anyview.cfg),
+        "metric_model": dataclasses.asdict(nested.metric.cfg)}))
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = DepthAnything3.from_pretrained(str(ckpt), device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    same = isinstance(loaded, DepthAnything3Nested)
+    if same:
+        for a, b in ((nested.anyview, loaded.anyview), (nested.metric, loaded.metric)):
+            sa, sb = a.net.state_dict(), b.net.state_dict()
+            same &= a.cfg == b.cfg and set(sa) == set(sb) and all(
+                torch.equal(sa[k], sb[k]) for k in sa)
+    del loaded
+    torch.cuda.empty_cache()
+    n_params = sum(p.numel() for sub in subs for p in sub.net.parameters())
+    emit("nested_checkpoint", name=NESTED_NAME, tiers=["giant", "large"], seeds=[0, 1],
+         parameters=n_params, tensors=len(sd), init_on_card_s=init_s,
+         file_bytes=(ckpt / "model.safetensors").stat().st_size, write_s=write_s,
+         load_s=load_s, load_includes="reading the file, making the missing tensors on the "
+         "card, the import", schema=diff, loaded_bit_equal=same)
+    if not diff["ok"]:
+        fail(f"nested checkpoint against the published manifest: {diff}")
+    if not same:
+        fail("nested checkpoint: the loaded model is not the one that was written")
+    return ckpt, nested
+
+
+def phase_main_slam_nested(path_launches: dict, ckpt: Path, nested) -> Path:
+    """``cli/main_slam`` with ``Weights.DA3`` at phase 28's nested checkpoint
+    directory over the 31 frames (chunk 15, overlap 1: three chunks at 504²):
+    192 bound-forward launches, finite poses, every chunk's metric scale;
+    frames/s, the load and the run apart, peak memory.  Then the in-memory
+    round trip: ``export_torch_style_nested`` → split → import gives outputs
+    bit-equal to the built model on one chunk.  The checkpoint directory is
+    deleted at the end.  Returns the trajectory's directory."""
+    import shutil
+
+    from da3slam_tpu_torch.cli import main_slam
+    from da3slam_tpu_torch.models.da3 import DepthAnything3
+    from da3slam_tpu_torch.models.nested import DepthAnything3Nested, export_torch_style_nested
+    from da3slam_tpu_torch.models.torch_import import split_nested_state_dict
+
+    out_dir = WORK / "out_nested"
+    config = WORK / "nested.yaml"
+    config.write_text(f"Weights: {{DA3: {ckpt}}}\n"
+                      "Model: {chunk_size: 15, overlap_size: 1, keyframe_interval: 1, "
+                      "sleep_between_chunk: 0}\n")
+    seconds: dict = {}
+    scales: list = []
+
+    def timed_load(fn):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            model = fn(*a, **k)
+            torch.cuda.synchronize()
+            seconds["load"] = seconds.get("load", 0.0) + time.perf_counter() - t0
+            return model
+        return call
+
+    def record_scale(fn):
+        def call(self, *a, **k):
+            pred = fn(self, *a, **k)
+            scales.append(pred.metric_scale)
+            return pred
+        return call
+
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        with counted(path_launches, "main_slam_nested"), \
+                patched(DepthAnything3, "from_pretrained", timed_load), \
+                patched(DepthAnything3Nested, "inference", record_scale):
+            t0 = time.perf_counter()
+            solver = main_slam.main(["--image_dir", str(frames_dir()), "--config", str(config),
+                                     "--output_dir", str(out_dir), "--headless"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        model_type = type(solver.model).__name__
+        del solver
+    finally:
+        shutil.rmtree(ckpt.parent, ignore_errors=True)
+    torch.cuda.empty_cache()
+    launches = path_launches["main_slam_nested"]
+    expected = expected_launches(flash_attn_bound_fwd=NESTED_EXPECTED_LAUNCHES)
+    poses = np.loadtxt(out_dir / "camera_poses.txt", ndmin=2)
+    scales = [float(s) for s in scales]
+    run_s = wall - seconds["load"]
+
+    # the in-memory round trip on one chunk (15 frames at 504²)
+    split = split_nested_state_dict(export_torch_style_nested(nested))
+    again = DepthAnything3Nested.from_split_state_dicts(*split[:2], device="cuda")
+    frames = make_frames(15, seed=1)
+    a, b = nested.inference(image=frames), again.inference(image=frames)
+    round_trip = all(np.array_equal(getattr(a, f), getattr(b, f))
+                     for f in ("depth", "conf", "extrinsics", "intrinsics")) \
+        and a.metric_scale == b.metric_scale
+    del again
+    torch.cuda.empty_cache()
+    emit("main_slam_nested", model=model_type, tiers=["giant", "large"], frames=N_FRAMES,
+         chunk_size=15, chunks=3, wall_s=wall, load_s=seconds["load"], run_s=run_s,
+         frames_per_s=N_FRAMES / wall, run_frames_per_s=N_FRAMES / run_s,
+         wall_includes="the checkpoint's load (file read, tensors made on the card, import), "
+         "PNG decode, export", max_memory_allocated_bytes=peak, metric_scales=scales,
+         poses_shape=list(poses.shape), poses_finite=bool(np.isfinite(poses).all()),
+         round_trip_bit_equal=round_trip, round_trip_metric_scale=a.metric_scale,
+         kernel_launches=launches, expected_launches=expected, gpu_state=gpu_state())
+    if model_type != "DepthAnything3Nested":
+        fail(f"main_slam_nested: the checkpoint loaded as {model_type}")
+    if poses.shape != (N_FRAMES, 16) or not np.isfinite(poses).all():
+        fail(f"main_slam_nested: camera_poses.txt {poses.shape}, finite {np.isfinite(poses).all()}")
+    if len(scales) != 3 or not all(np.isfinite(s) and s > 0 for s in scales):
+        fail(f"main_slam_nested: metric scales {scales}")
+    if launches != expected:
+        fail(f"main_slam_nested: launches {launches} != {expected}")
+    if not round_trip:
+        fail("main_slam_nested: export → split → import does not give the built model's outputs")
+    return out_dir
+
+
+def phase_nested_parity() -> tuple[Path, Path]:
+    """The nested tier at giant and large widths, cut to 4 blocks each
+    (``dpt_layers`` 0-3), its depth channel put at depths of order 1
+    (``NESTED_DEPTH_BIAS``) and its LayerScale at 0.1, on 2 unrelated frames
+    at 518²: f32 on the card (kernels,
+    ``highest_precision``) against the same weights on the CPU (plain
+    attention), depth, conf, extrinsics, intrinsics and the metric scale
+    within MODEL_PARITY_TOL.  The CPU run also writes the parity golden (its
+    prediction, and its ``export_dir`` beside it) and the weights go to a
+    nested checkpoint directory; both are returned for the parity CLI."""
+    import dataclasses
+
+    from da3slam_tpu_torch.core.transforms import highest_precision
+    from da3slam_tpu_torch.models.config import get_preset
+    from da3slam_tpu_torch.models.da3 import DepthAnything3, init_params
+    from da3slam_tpu_torch.models.nested import DepthAnything3Nested, export_torch_style_nested
+    from da3slam_tpu_torch.models.weights import save_file
+
+    cut = dict(depth=NESTED_PARITY_DEPTH, dpt_layers=tuple(range(NESTED_PARITY_DEPTH)),
+               layerscale_init=NESTED_PARITY_LAYERSCALE)
+    subs = [DepthAnything3(cfg, init_params(cfg, seed))
+            for cfg, seed in ((get_preset("giant").with_overrides(**cut), 0),
+                              (get_preset("large").with_overrides(**cut), 1))]
+    with torch.no_grad():
+        for sub in subs:
+            last = sub.net.depth_head.scratch.output_conv2[2]
+            last.weight[0] *= NESTED_DEPTH_WEIGHT_SCALE
+            last.bias[0] = NESTED_DEPTH_BIAS
+    cpu = DepthAnything3Nested(*subs)
+    gpu = DepthAnything3Nested(*[DepthAnything3(s.cfg, copy.deepcopy(s.net).to("cuda"),
+                                                dtype=torch.float32) for s in subs])
+    frames = np.concatenate([make_frames(1, seed=s) for s in NESTED_PARITY_FRAME_SEEDS])
+    export = WORK / "nested_parity_export"
+    t0 = time.perf_counter()
+    p_cpu = cpu.inference(image=frames, export_dir=export)
+    cpu_s = time.perf_counter() - t0
+    with highest_precision():
+        p_gpu = gpu.inference(image=frames)
+        torch.cuda.synchronize()
+    errs = {}
+    for field in ("depth", "conf", "extrinsics", "intrinsics"):
+        a, b = getattr(p_gpu, field), getattr(p_cpu, field)
+        if a.shape != b.shape or not np.isfinite(a).all():
+            fail(f"nested parity: {field} shape {a.shape} vs {b.shape} or non-finite")
+        errs[field] = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-12))
+    errs["metric_scale"] = abs(p_gpu.metric_scale - p_cpu.metric_scale) / abs(p_cpu.metric_scale)
+    exported = np.load(export / "prediction.npz")
+    pre_rescale = bool(np.array_equal(exported["depth"] * np.float32(p_cpu.metric_scale),
+                                      p_cpu.depth))
+
+    golden = WORK / "nested_golden.npz"
+    np.savez(golden, processed_images=p_cpu.processed_images, depth=p_cpu.depth,
+             conf=p_cpu.conf, extrinsics=p_cpu.extrinsics, intrinsics=p_cpu.intrinsics)
+    ckpt = WORK / "nested_parity_ckpt"
+    ckpt.mkdir(parents=True, exist_ok=True)
+    save_file(export_torch_style_nested(cpu), ckpt / "model.safetensors")
+    (ckpt / "config.json").write_text(json.dumps({
+        "model": dataclasses.asdict(subs[0].cfg), "metric_model": dataclasses.asdict(subs[1].cfg)}))
+    emit("nested_parity", tiers=["giant", "large"], depth_each=NESTED_PARITY_DEPTH,
+         frames=len(frames), frame_seeds=NESTED_PARITY_FRAME_SEEDS, input_hw=518,
+         processed_hw=list(p_gpu.depth.shape[1:]), layerscale=NESTED_PARITY_LAYERSCALE,
+         depth_channel={"weight_scale": NESTED_DEPTH_WEIGHT_SCALE, "bias": NESTED_DEPTH_BIAS},
+         relative_translation=p_cpu.extrinsics[1, :, 3].tolist(),
+         depth_quantiles_01_50_99=np.quantile(p_cpu.depth / p_cpu.metric_scale,
+                                              [0.01, 0.5, 0.99]).tolist(),
+         metric_scale_cpu=p_cpu.metric_scale, metric_scale_card=p_gpu.metric_scale,
+         max_rel_err=errs, tol=MODEL_PARITY_TOL, cpu_inference_s=cpu_s,
+         export_dir_depth_is_before_the_rescale=pre_rescale)
+    if not all(e <= MODEL_PARITY_TOL for e in errs.values()):
+        fail(f"nested f32 parity beyond {MODEL_PARITY_TOL}: {errs}")
+    if not pre_rescale:
+        fail("nested parity: export_dir's depth is not the depth before the metric rescale")
+    return ckpt, golden
+
+
+def phase_parity_cli(ckpt: Path, golden: Path) -> None:
+    """``cli/parity --checkpoint D --golden G`` on the card (bf16, the
+    kernels) against phase 30's CPU golden of the same nested checkpoint:
+    exit code 0 within ``DEFAULT_THRESHOLDS``; the metrics."""
+    from da3slam_tpu_torch.cli import parity
+    from da3slam_tpu_torch.utils.parity import DEFAULT_THRESHOLDS
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = parity.main(["--checkpoint", str(ckpt), "--golden", str(golden)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    metrics = {ln.split(":")[0].strip(): float(ln.split(":")[1])
+               for ln in out.getvalue().splitlines() if ln.startswith("    ")}
+    emit("parity_cli", rc=rc, metrics=metrics, thresholds=DEFAULT_THRESHOLDS, dtype="bfloat16",
+         wall_s=wall, summary=out.getvalue().splitlines()[-1])
+    if rc != 0:
+        fail(f"parity CLI exit code {rc}: {out.getvalue()}")
+
+
+def phase_main_conf(path_launches: dict) -> None:
+    """``cli/main_conf --stats_only`` at SMALL (ray poses) over the first 8
+    of the 31 frames: each frame's confidence statistics, 12 bound-forward
+    launches.  The figures need matplotlib, which this machine lacks."""
+    from da3slam_tpu_torch.cli import main_conf
+
+    out = io.StringIO()
+    with counted(path_launches, "main_conf"), contextlib.redirect_stdout(out):
+        t0 = time.perf_counter()
+        stats = main_conf.main(["--image_dir", str(frames_dir()), "--model", "small",
+                                "--chunk_size", str(CONF_CHUNK), "--stats_only"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = path_launches["main_conf"]
+    expected = expected_launches(flash_attn_bound_fwd=12)
+    rows = [{k: (v.tolist() if isinstance(v, np.ndarray) else v) for k, v in s.items()
+             if k in ("min", "max", "mean", "median", "counts")} for s in stats]
+    emit("main_conf", preset="small", frames=CONF_CHUNK, wall_s=wall, stats=rows,
+         kernel_launches=launches, expected_launches=expected)
+    ok = len(stats) == CONF_CHUNK and all(
+        np.isfinite([s["min"], s["max"], s["mean"], s["median"]]).all() and s["min"] >= 1.0
+        and int(s["counts"].sum()) == 504 * 504 for s in stats)
+    if not ok:
+        fail(f"main_conf: statistics {rows}")
+    if launches != expected:
+        fail(f"main_conf: launches {launches} != {expected}")
+
+
+def c3vd_sequence_dir() -> tuple[Path, np.ndarray, np.ndarray]:
+    """A C3VD-layout sequence over phase 22's 31 frames (linked as
+    ``NNNN_color.png``): 16-bit depth TIFFs of a smooth surface 10-90 mm away
+    and a ``pose.txt`` of row-major c2w matrices in millimetres.  Returns the
+    directory and the ground truth in metres (depth, c2w)."""
+    import os
+
+    from PIL import Image
+
+    from da3slam_tpu_torch.inout.datasets import C3VD_DEPTH_SCALE_M
+
+    seq = WORK / "c3vd_seq"
+    seq.mkdir(parents=True, exist_ok=True)
+    H, W = C3VD_HW
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float64)
+    poses = np.tile(np.eye(4), (N_FRAMES, 1, 1))
+    depth = np.empty((N_FRAMES, H, W), np.float32)
+    for i, src in enumerate(sorted(c3vd_frames_dir().glob("*.jpg"))):
+        link = seq / f"{i:04d}_color.png"
+        if not link.exists():
+            os.symlink(src, link)
+        a = 0.02 * i
+        poses[i, :3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+        poses[i, :3, 3] = [1.5 * i, 0.4 * np.sin(0.3 * i), 0.2 * i]  # millimetres
+        d = 0.05 + 0.03 * np.sin(xx / W * 3 + 0.1 * i) * np.cos(yy / H * 2)  # metres
+        raw = np.round(d / C3VD_DEPTH_SCALE_M).astype(np.uint16)
+        Image.fromarray(raw).save(seq / f"{i:04d}_depth.tiff")
+        depth[i] = raw.astype(np.float32) * np.float32(C3VD_DEPTH_SCALE_M)
+    (seq / "pose.txt").write_text("\n".join(",".join(f"{v:.9f}" for v in T.reshape(-1))
+                                            for T in poses))
+    gt = poses.copy()
+    gt[:, :3, 3] *= 1e-3
+    return seq, depth, gt
+
+
+def phase_evaluate(nested_out: Path) -> None:
+    """``cli/evaluate`` twice on the card: the nested tier's ``main_slam``
+    trajectory against the SMALL main path's (sim3); and a C3VD-layout
+    sequence with known answers: the estimate is the ground truth at half
+    scale with 0.1 mm of seeded noise, and depth at 1.25x at 504x630 with 1%
+    noise (resampled to 1080x1350 by the CLI).  Sim3 must recover the scale
+    2 and median scaling 0.8, each within 1%."""
+    from da3slam_tpu_torch.cli import evaluate
+    from da3slam_tpu_torch.inout.trajectory import save_camera_poses
+    from da3slam_tpu_torch.ops.resize import resize_bilinear
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        slam = evaluate.main(["--est", str(nested_out / "camera_poses.txt"),
+                              "--gt", str(WORK / "out" / "camera_poses.txt"), "--align", "sim3"])
+    slam_s = time.perf_counter() - t0
+
+    seq, depth, gt = c3vd_sequence_dir()
+    rng = np.random.default_rng(6)
+    est = gt.copy()
+    est[:, :3, 3] = 0.5 * gt[:, :3, 3] + rng.normal(scale=1e-4, size=(N_FRAMES, 3))
+    save_camera_poses(WORK / "c3vd_est", est, np.tile(np.eye(3, dtype=np.float32),
+                                                      (N_FRAMES, 1, 1)))
+    small = resize_bilinear(torch.from_numpy(depth)[..., None], (504, 630))[..., 0].numpy()
+    pred = (1.25 * small * rng.uniform(0.99, 1.01, small.shape)).astype(np.float32)
+    np.save(WORK / "c3vd_est" / "depth.npy", pred)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        c3vd = evaluate.main(["--est", str(WORK / "c3vd_est" / "camera_poses.txt"),
+                              "--gt_seq", str(seq),
+                              "--depth_est", str(WORK / "c3vd_est" / "depth.npy")])
+    c3vd_s = time.perf_counter() - t0
+    emit("evaluate", nested_vs_main_path=slam, nested_vs_main_path_s=slam_s, c3vd=c3vd,
+         c3vd_s=c3vd_s, c3vd_frames=N_FRAMES, c3vd_hw=list(C3VD_HW), depth_est_hw=[504, 630])
+    if not all(np.isfinite(v) for v in slam["trajectory"].values()):
+        fail(f"evaluate: the nested trajectory's scores {slam}")
+    t, d = c3vd["trajectory"], c3vd["depth"]
+    if not (abs(t["scale"] - 2.0) < 0.02 and abs(d["scale"] - 0.8) < 0.008
+            and t["ate_rmse"] < 1e-3 and d["abs_rel"] < 0.02):
+        fail(f"evaluate: the C3VD scores {c3vd} miss the known answers")
+
+
 SOURCES = {
     "flash_attn_bound_fwd": ("da3slam_tpu_torch/ops/csrc/flash_attn_fwd.cu",
                              "da3slam_tpu/ops/flash_attention.py:116", "cross"),
@@ -2875,6 +3317,13 @@ def main() -> None:
     phase_rasterize(path_launches)
     trained = phase_main_3dgs(path_launches, mesh_frames)
     phase_render(path_launches, trained)
+    ckpt, nested = phase_nested_checkpoint()
+    nested_out = phase_main_slam_nested(path_launches, ckpt, nested)
+    del nested
+    torch.cuda.empty_cache()
+    phase_parity_cli(*phase_nested_parity())
+    phase_main_conf(path_launches)
+    phase_evaluate(nested_out)
     kernels = []
     for name, (source, replaces, headline) in SOURCES.items():
         by_path = {path: counts[name] for path, counts in path_launches.items()}

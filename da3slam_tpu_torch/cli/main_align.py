@@ -45,15 +45,13 @@ def main(argv=None) -> None:
     if not args.headless:
         raise NotImplementedError("the viewer is not ported yet (ROADMAP queue 1, item 13): "
                                   "run with --headless")
-    if args.debug_color:
-        raise NotImplementedError("--debug_color needs viz/debug.py, which is not ported yet "
-                                  "(ROADMAP queue 1, item 13)")
 
     from da3slam_tpu_torch.core.geometry import backproject_depth
     from da3slam_tpu_torch.inout import load_config, load_image_paths, write_ply
     from da3slam_tpu_torch.models.da3 import DepthAnything3
     from da3slam_tpu_torch.slam.alignment import AlignmentConfig, align_chunk_single_overlap
     from da3slam_tpu_torch.slam.chunks import make_chunk_indices
+    from da3slam_tpu_torch.viz.debug import apply_chunk_color_to_images_batch
 
     if args.config:
         model_path = load_config(args.config).get("Weights", {}).get("DA3", args.model)
@@ -81,8 +79,11 @@ def main(argv=None) -> None:
     def accumulate(pred, ext_global):
         pts = backproject_depth(dev(pred.depth), dev(pred.intrinsics), dev(ext_global))
         keep = pred.conf >= 1.0
+        colors = pred.processed_images
+        if args.debug_color:
+            colors = apply_chunk_color_to_images_batch(colors, len(all_pts))
         all_pts.append(pts.cpu().numpy()[keep])
-        all_cols.append(pred.processed_images[keep])
+        all_cols.append(colors[keep])
 
     prev = infer(chunks[0])
     prev_ext_global = prev.extrinsics.astype(np.float64)

@@ -1,2 +1,2 @@
-"""The DA3 network as nn.Modules, its presets, the JAX-weight converter and
-checkpoint directories."""
+"""The DA3 network as nn.Modules, its presets, the JAX-weight converter,
+checkpoint directories, the torch-checkpoint import and the nested tier."""

@@ -1,7 +1,7 @@
 """Model configuration and checkpoint-tier presets (copy of
 ``da3slam_tpu/models/config.py``'s ``ModelConfig``, ``PRESETS``,
-``get_preset`` and ``config_from_json``; that module cannot be imported without JAX, through its
-package ``__init__``)."""
+``get_preset``, the nested presets and ``config_from_json``; that module
+cannot be imported without JAX, through its package ``__init__``)."""
 
 from __future__ import annotations
 
@@ -80,6 +80,31 @@ _ALIASES = {
     "da3-large": "large", "da3-large-1.1": "large",
     "da3nested-giant-large-1.1": "giant", "da3-giant": "giant",
 }
+
+
+# NESTED checkpoints package two complete DA3 models: the any-view geometry
+# model plus the monocular metric model that recovers the metric scale
+# (models/nested.py).  Values are (anyview_preset, metric_preset);
+# ``nested-tiny`` exists for tests.
+NESTED_PRESETS: dict[str, tuple[str, str]] = {
+    "nested-giant-large": ("giant", "large"),
+    "nested-tiny": ("tiny", "tiny"),
+}
+
+_NESTED_ALIASES = {
+    "da3nested-giant-large-1.1": "nested-giant-large",
+    "da3nested-giant-large": "nested-giant-large",
+}
+
+
+def resolve_nested_preset(name: str) -> tuple[str, str] | None:
+    """(anyview_preset, metric_preset) when ``name`` names a nested tier, else
+    None.  Checkpoint-directory-style paths resolve by basename, as in
+    :func:`get_preset`, whose alias of the nested name to ``"giant"`` the
+    dispatch in ``models/da3.py`` never reaches."""
+    key = Path(name).name.lower()
+    key = _NESTED_ALIASES.get(key, key)
+    return NESTED_PRESETS.get(key)
 
 
 def get_preset(name: str) -> ModelConfig:

@@ -5,10 +5,11 @@
 with ``forward_fn`` underneath.  The network is one ``nn.Module`` whose
 state-dict names are the DA3/DINOv2 ones (``models/convert.py``).  The
 working dtype is bf16 on CUDA and f32 on the CPU.  ``from_pretrained`` takes
-a preset name or a checkpoint directory (``models/weights.py``);
-``quantize("w8a8")`` returns a copy whose encoder GEMMs run int8.
-``inference(export_dir=...)`` writes the ``mini_npz`` or the ``glb``
-export; the nested tier and ``pytorch_model.bin`` files are not ported yet.
+a preset name or a checkpoint directory (``models/weights.py``,
+``models/torch_import.py``); a nested preset or checkpoint gives a
+``DepthAnything3Nested`` (``models/nested.py``).  ``quantize("w8a8")``
+returns a copy whose encoder GEMMs run int8.  ``inference(export_dir=...)``
+writes the ``mini_npz`` or the ``glb`` export.
 """
 
 from __future__ import annotations
@@ -42,6 +43,10 @@ class Prediction:
     extrinsics: Any  # [N, 3, 4] float32 w2c OpenCV, chunk-local
     intrinsics: Any  # [N, 3, 3] float32 zero-skew pinhole
     frame_desc: Any = None  # [N, D] L2-normalised encoder descriptors
+    # nested tiers only (models/nested.py): the recovered metric scale that
+    # depth and extrinsic translations were multiplied by (a float, or a 0-d
+    # device tensor with keep_on_device); None for the plain tiers
+    metric_scale: Any = None
 
 
 class DA3Net(vit.ViTEncoder):
@@ -54,10 +59,14 @@ class DA3Net(vit.ViTEncoder):
         self.camera_head = camera.CameraHead(cfg)
 
 
-def init_params(cfg: ModelConfig, seed: int = 0) -> DA3Net:
-    """A randomly initialised network on the CPU, from an explicit generator."""
-    net = DA3Net(cfg)
-    gen = torch.Generator().manual_seed(seed)
+def init_params(cfg: ModelConfig, seed: int = 0, device: str | torch.device = "cpu") -> DA3Net:
+    """A randomly initialised network made on ``device`` from a generator of
+    that device (the same seed gives other numbers on the card than on the
+    CPU; on the CPU, the same as ever)."""
+    device = torch.device(device)
+    with device:
+        net = DA3Net(cfg)
+    gen = torch.Generator(device).manual_seed(seed)
     vit.init_encoder(net, cfg, gen)
     dpt.init_dpt(net.depth_head, gen)
     camera.init_camera_head(net.camera_head, gen)
@@ -114,66 +123,79 @@ class DepthAnything3:
     def from_pretrained(
         cls, preset: str, seed: int = 0, device: str | torch.device = "cuda"
     ) -> "DepthAnything3":
-        """A checkpoint directory (``model.safetensors`` + ``config.json``), or
-        a randomly initialised model of a preset tier (``tiny``/``small``/...,
-        or a checkpoint-directory-style name such as ``DA3-SMALL`` when no
-        such directory exists).  Weights are loaded or made (from ``seed``) on
-        the CPU, then moved to ``device``.
+        """A checkpoint directory, or a randomly initialised model of a preset
+        tier (``tiny``/``small``/..., or a checkpoint-directory-style name such
+        as ``DA3-SMALL`` when no such directory exists), dispatched as the JAX
+        package does:
 
-        A directory in the JAX package's native layout (``/``-joined pytree
-        paths) goes through ``models/convert.py``; a torch-style (dot-named)
-        one goes straight into ``load_state_dict``."""
+        - ``model.safetensors`` in the JAX package's native layout
+          (``/``-joined pytree paths) goes through ``models/convert.py``
+          (its ``config.json`` is required);
+        - a torch-style (dot-named) ``model.safetensors``, or a pickled
+          ``pytorch_model.bin``/``model.pt``/``model.bin``, holding two
+          backbones is a nested checkpoint (``DepthAnything3Nested``), else it
+          goes through ``models/torch_import.py``;
+        - a nested preset name (``DA3NESTED-GIANT-LARGE-1.1``,
+          ``nested-tiny``) gives a ``DepthAnything3Nested`` of random weights;
+        - anything else names a preset.
+
+        A preset's random weights are made from ``seed`` on the CPU, then
+        moved to ``device``; an imported checkpoint's missing tensors are made
+        on ``device``."""
+        from da3slam_tpu_torch.models.config import resolve_nested_preset
+        from da3slam_tpu_torch.models.torch_import import (
+            load_checkpoint_dir,
+            split_nested_state_dict,
+        )
+
         p = Path(preset)
-        if (p / "model.safetensors").exists():
-            return cls._from_directory(p, device)
-        for torch_file in ("pytorch_model.bin", "model.pt", "model.bin"):
-            if (p / torch_file).exists():
-                raise NotImplementedError(
-                    f"{p / torch_file}: pickled torch checkpoints are not ported yet "
-                    "(ROADMAP queue 1, item 10); convert to model.safetensors")
+        sd = load_checkpoint_dir(p)
+        if sd is not None:
+            if any("/" in k for k in sd):
+                return cls._from_native(sd, p, device)
+            split = split_nested_state_dict(sd)
+            if split is not None:
+                from da3slam_tpu_torch.models.nested import DepthAnything3Nested
+
+                return DepthAnything3Nested.from_split_state_dicts(
+                    *split[:2], ckpt_dir=p, seed=seed, device=device)
+            return cls._from_torch_state_dict(sd, p, seed, device)
+        if resolve_nested_preset(preset) is not None:
+            from da3slam_tpu_torch.models.nested import DepthAnything3Nested
+
+            return DepthAnything3Nested.from_pretrained(preset, seed, device)
         cfg = get_preset(preset)
         return cls(cfg, init_params(cfg, seed).to(device))
 
     @classmethod
-    def _from_directory(cls, ckpt_dir: Path, device) -> "DepthAnything3":
+    def _from_native(cls, flat: dict, ckpt_dir: Path, device) -> "DepthAnything3":
         from da3slam_tpu_torch.models.convert import convert
-        from da3slam_tpu_torch.models.weights import load_file, unflatten_params
+        from da3slam_tpu_torch.models.weights import unflatten_params
 
-        flat = load_file(ckpt_dir / "model.safetensors")
-        native = any("/" in k for k in flat)
-        probe = "patch_embed/kernel" if native else "patch_embed.proj.weight"
-        if sum(k.endswith(probe) for k in flat) > 1:
-            raise NotImplementedError(
-                f"{ckpt_dir}: a checkpoint of two backbones (the nested tier) is not ported "
-                "yet (ROADMAP queue 1, item 10)")
-        if (ckpt_dir / "config.json").exists():
-            cfg = config_from_json(ckpt_dir / "config.json")
-        elif native:
+        if not (ckpt_dir / "config.json").exists():
             raise FileNotFoundError(f"{ckpt_dir}: a native checkpoint needs its config.json")
-        else:
-            cfg = get_preset(str(ckpt_dir))
-        if native:
-            tree = unflatten_params({k: v.float().numpy() for k, v in flat.items()})
-            sd = convert(tree)
-        else:
-            sd = {k: v.float() for k, v in flat.items()}
-        # the FFN flavour is visible in the tensors: trust them over a
-        # config.json that omits mlp_type (backbone blocks only:
-        # camera_head.mlp.fc1 would match too)
-        swiglu = any(".mlp.w12." in k and k.startswith("blocks.") for k in sd)
-        mlp = any(".mlp.fc1." in k and k.startswith("blocks.") for k in sd)
-        if swiglu != mlp:
-            cfg = cfg.with_overrides(mlp_type="swiglu" if swiglu else "mlp")
+        sd = convert(unflatten_params({k: v.float().numpy() for k, v in flat.items()}))
+        cfg = _ffn_from_tensors(config_from_json(ckpt_dir / "config.json"), sd)
         net = DA3Net(cfg)
-        # the released layerN_rn convs have no bias; DINOv2's mask_token serves
-        # only its training
-        for k in range(1, 5):
-            name = f"depth_head.scratch.layer{k}_rn.bias"
-            if name not in sd:
-                sd[name] = torch.zeros_like(net.state_dict()[name])
-        sd.pop("mask_token", None)
         net.load_state_dict(sd, strict=True)
         return cls(cfg, net.to(device))
+
+    @classmethod
+    def _from_torch_state_dict(cls, sd: dict, ckpt_dir: Path, seed: int,
+                               device) -> "DepthAnything3":
+        from da3slam_tpu_torch.models.torch_import import import_torch_checkpoint
+
+        try:
+            cfg = config_from_json(ckpt_dir / "config.json")
+        except (OSError, ValueError, TypeError):  # absent, or not a model config
+            cfg = get_preset(str(ckpt_dir))
+        cfg = _ffn_from_tensors(cfg, sd)
+        net, report = import_torch_checkpoint(sd, init_params(cfg, seed, device), cfg)
+        print(f"torch checkpoint import: {report}")
+        if report.missing:
+            print(f"  unmatched (kept at init): {report.missing[:8]}"
+                  + (" ..." if len(report.missing) > 8 else ""))
+        return cls(cfg, net)
 
     def quantize(self, scheme: str = "w8a8") -> "DepthAnything3":
         """A copy whose encoder QKV and MLP GEMMs run pre-quantized int8 × int8
@@ -256,6 +278,15 @@ class DepthAnything3:
             _export({k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
                      for k, v in fields.items()}, Path(export_dir), export_format)
         return pred
+
+
+def _ffn_from_tensors(cfg: ModelConfig, sd: dict) -> ModelConfig:
+    """The FFN flavour is visible in the tensors: trust them over a
+    config.json that omits mlp_type (backbone blocks only: camera_head.mlp.fc1
+    would match too)."""
+    swiglu = any(".mlp.w12." in k and "blocks." in k for k in sd)
+    mlp = any(".mlp.fc1." in k and "blocks." in k for k in sd)
+    return cfg.with_overrides(mlp_type="swiglu" if swiglu else "mlp") if swiglu != mlp else cfg
 
 
 def _export(fields: dict, out: Path, export_format: str) -> None:

@@ -79,11 +79,12 @@ class SLAMSolver:
 
         self.model = model if model is not None else self._load_model()
         if self.prefetch is None:
-            # only the port's own model is known to take pre-decoded arrays;
+            # only the port's own models are known to take pre-decoded arrays;
             # other models (e.g. path-keyed test doubles) keep paths
             from da3slam_tpu_torch.models.da3 import DepthAnything3
+            from da3slam_tpu_torch.models.nested import DepthAnything3Nested
 
-            self.prefetch = isinstance(self.model, DepthAnything3)
+            self.prefetch = isinstance(self.model, (DepthAnything3, DepthAnything3Nested))
         self.viewer = None
 
         # optional online loop closure (off by default; slam/online_loop.py)

@@ -34,21 +34,28 @@ MESH_SLICE = ("cli.main_mesh", "cli.preprocess", "inout.mesh", "ops.tsdf",
 # the 3DGS slice: rasterizer, splats, distortion, exporters and their CLIs
 GS_SLICE = ("cli.main_3dgs", "cli.render", "core.geometry", "inout.export3d",
             "ops.distortion", "ops.rasterize", "ops.splats")
+# the nested tier, the torch-checkpoint import and the parity, confidence and
+# evaluation CLIs
+NESTED_SLICE = ("cli.evaluate", "cli.main_conf", "cli.parity", "inout.datasets",
+                "models.nested", "models.torch_import", "utils.parity", "viz.confidence",
+                "viz.debug")
 
 
 def test_no_module_imports_jax_or_the_jax_package():
     out = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=ROOT, capture_output=True,
                          text=True, timeout=120, check=True).stdout.split()
-    assert int(out[0]) >= 65  # every module of the port was imported
+    assert int(out[0]) >= 75  # every module of the port was imported
     assert out[1] == "[]"
     walked = out[2].split(",")
-    assert all(f"da3slam_tpu_torch.{m}" in walked for m in LOOP_SLICE + MESH_SLICE + GS_SLICE)
+    assert all(f"da3slam_tpu_torch.{m}" in walked
+               for m in LOOP_SLICE + MESH_SLICE + GS_SLICE + NESTED_SLICE)
 
 
-@pytest.mark.parametrize("module", GS_SLICE)
+@pytest.mark.parametrize("module", GS_SLICE + NESTED_SLICE)
 def test_3dgs_slice_imports_alone(module):
-    """Each module of the 3DGS slice, imported by itself in a fresh process,
-    loads neither JAX, nor the JAX package, nor a shared library of it."""
+    """Each module of the 3DGS slice and of the nested-tier slice, imported by
+    itself in a fresh process, loads neither JAX, nor the JAX package, nor a
+    shared library of it."""
     code = (f"import sys, da3slam_tpu_torch.{module}\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'da3slam_tpu') "
             "or m.startswith(('jax.', 'jaxlib', 'da3slam_tpu.')))\n"

@@ -627,10 +627,12 @@ class TestWholeSlice:
         base = ["--image_dir", str(tmp_path), "--device", "cpu"]
         with pytest.raises(NotImplementedError, match="headless"):
             main_align.main(base)
-        with pytest.raises(NotImplementedError, match="item 13"):
-            main_align.main(base + ["--headless", "--debug_color"])
         with pytest.raises(SystemExit, match="no images"):
             main_align.main(base + ["--headless", "--model", "tiny"])
+        # --debug_color is ported (tests/test_torch_conf_eval.py holds its
+        # colours to the JAX CLI's): the flag now reaches the same check
+        with pytest.raises(SystemExit, match="no images"):
+            main_align.main(base + ["--headless", "--model", "tiny", "--debug_color"])
 
     def test_cli_refuses_missing_cuda_and_viewer(self, tmp_path):
         from da3slam_tpu_torch.cli import main_slam

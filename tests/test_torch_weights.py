@@ -121,19 +121,44 @@ class TestDirectories:
         np.testing.assert_array_equal(a.extrinsics, b.extrinsics)
 
     def test_what_is_not_ported_raises(self, tmp_path, jmodel):
+        """What used to raise (a nested checkpoint, a pickled one) now loads
+        and gives the JAX package's outputs for the same directory; a native
+        directory without its config.json still raises."""
+        import dataclasses
+
+        from da3slam_tpu_torch.models.nested import DepthAnything3Nested
+
         d = tmp_path / "nested"
         sd = {k: torch.tensor(np.array(v)) for k, v in
               export_torch_style(jax.tree.map(np.asarray, jmodel.params)).items()}
         both = {f"model.{k}": v for k, v in sd.items()}
         both.update({f"metric_model.{k}": v for k, v in sd.items()})
         weights.save_checkpoint(d, both, get_preset("tiny"))
-        with pytest.raises(NotImplementedError, match="queue 1, item 10"):
-            DepthAnything3.from_pretrained(str(d), device="cpu")
+        if jmodel.cfg.mlp_type == "swiglu":  # no preset is a SwiGLU tiny: name it
+            cfg = dataclasses.asdict(jmodel.cfg)
+            (d / "config.json").write_text(json.dumps({"model": cfg, "metric_model": cfg}))
+        nested = DepthAnything3.from_pretrained(str(d), device="cpu")
+        assert isinstance(nested, DepthAnything3Nested)
+        jnested = JDA3.from_pretrained(str(d))
+        pred = nested.inference(image=IMGS, process_res=70)
+        jpred = jnested.inference(image=IMGS, process_res=70)
+        # the metric scale multiplies depth and translations: held as the
+        # dense maps are, 1e-4 of the largest value
+        np.testing.assert_allclose(pred.depth, jpred.depth, rtol=1e-4,
+                                   atol=1e-4 * np.abs(jpred.depth).max())
+        np.testing.assert_allclose(pred.extrinsics, jpred.extrinsics, rtol=1e-4,
+                                   atol=1e-4 * np.abs(jpred.extrinsics).max())
+        assert abs(pred.metric_scale - jpred.metric_scale) <= 1e-5 * abs(jpred.metric_scale)
+
         pickled = tmp_path / "pickled"
         pickled.mkdir()
-        (pickled / "pytorch_model.bin").write_bytes(b"")
-        with pytest.raises(NotImplementedError, match="queue 1, item 10"):
-            DepthAnything3.from_pretrained(str(pickled), device="cpu")
+        torch.save(sd, pickled / "pytorch_model.bin")
+        (pickled / "config.json").write_text(json.dumps(dataclasses.asdict(jmodel.cfg)))
+        model = DepthAnything3.from_pretrained(str(pickled), device="cpu")
+        assert dataclasses.asdict(model.cfg) == dataclasses.asdict(jmodel.cfg)
+        assert_same_prediction(model, jmodel)
+        assert_same_prediction(model, JDA3.from_pretrained(str(pickled)))
+
         native = tmp_path / "native"
         weights.save_checkpoint(native, {"encoder": {"norm": {"scale": torch.ones(2)}}},
                                 get_preset("tiny"))
