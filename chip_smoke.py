@@ -134,13 +134,28 @@ final line:
 33. evaluate: ``cli/evaluate`` on phase 29's trajectory against phase 9's,
     and on a written C3VD-layout sequence (16-bit depth TIFFs, ``pose.txt``)
     whose known answers (the scales) it must recover
+34-36. mesh_dp, mesh_sp, mesh_pp: ``run_streaming_slam(mesh=...)`` over the
+    31 frames (chunk 16: two windows) at SMALL on two ranks of one gloo group
+    time-sharing the card (``parallel/mesh.py:run_ranks``; NCCL refuses two
+    ranks on one GPU), dp, sp (8 + 8 views, ring cross-view attention) and pp
+    (two stages of 6 blocks), each held to the single-process run of the same
+    weights and frames within the bf16 bound (MULTI_TRIANGLE) and dp and pp
+    reported bit-equal or not; each rank's bound-forward launches against the
+    count from its blocks and hops, its bytes staged through the host, its
+    parameter bytes and peak memory, the wall time (time-shared, not scaling);
+    sp also holds the card's ring (a bound forward per hop, folded by lse)
+    against its plain version at the hop shape
+37. mesh_nccl: dp on one NCCL rank, bit-equal to the single-process run
+38. mesh_pp_giant: the giant tier (40 blocks, SwiGLU) in two stages of 20 on
+    two gloo ranks, each holding its stage of the blocks only
 
 The forward phase (3) also holds the bound forward at that joint length, at
-main_mesh's chunk-8 cross length (S = 10408) and at the nested tier's giant
-and metric shapes.
+main_mesh's chunk-8 cross length (S = 10408, also sp's ring hop), at the
+nested tier's giant and metric shapes and at the multi-device paths' (chunk
+16 at SMALL and giant width, sp's 8 views).
 Each driven path (7 twice, 8, 9, 13, 14, 15, 16, 18, 20, 21, 22, 23, 24 twice,
-25, 26 twice, 27, 29, 32) sets
-every launch count to 0 just before it and reads them just after.  The ``kernels`` line gives each kernel's
+25, 26 twice, 27, 29, 32, and 34-38 on each rank and in their single-process
+runs) sets every launch count to 0 just before it and reads them just after.  The ``kernels`` line gives each kernel's
 launches, error, time, plain version's time, roofline bound (from the shapes
 of this run, against the H100 SXM data sheet's peaks) and, where one PyTorch
 call computes the same function, that call's time (timed here, used nowhere
@@ -467,6 +482,42 @@ NESTED_DEPTH_WEIGHT_SCALE, NESTED_DEPTH_BIAS = 0.05, 2.0
 NESTED_PARITY_LAYERSCALE, NESTED_PARITY_FRAME_SEEDS = 0.1, (0, 5)
 # main_conf's chunk (its default) at SMALL: 12 bound-forward launches
 CONF_CHUNK = 8
+# Multi-device SLAM inference (phases 34-38): ranks of one process group
+# sharing the one card.  NCCL refuses two ranks on one GPU, so the two-rank
+# phases run gloo with CUDA tensors (``parallel/comm.py`` stages the
+# point-to-point hops through pinned host memory; gloo's collectives copy
+# through host memory themselves); the NCCL phase runs one rank.  The main
+# path's 31 frames at chunk 16, overlap 1: two windows; sp splits each
+# window's 16 views 8 + 8.  Random weights from seed 0 made on the card, the
+# same on every rank and in the single-process run they are held to (the same
+# frames with mesh=None), with LayerScale 0.1: at the presets' 1e-5 every
+# residual branch, attention included, vanishes under the bf16 rounding of
+# the residual stream, and a ring that attended wrongly would still agree.
+# Closed-form Umeyama alignment, as tests/test_torch_pipeline.py: ICP on a
+# random model's depth amplifies rounding.
+MULTI_CHUNK, MULTI_RANKS, MULTI_WINDOWS = 16, 2, 2
+MULTI_LAYERSCALE = 0.1
+MULTI_TIMEOUT_S = 300
+# The bf16 bound on max |mesh - single| of each output: twice what bf16 moves
+# that output in the single-process run (max |single bf16 - single f32|, the
+# same run in f32).  A mesh path that computes the same function with its
+# bf16 roundings elsewhere is, like the single run, about that far from the
+# f32 result, so at most twice it from the single run.  dp and pp run the
+# one-device path's operations at its shapes (expected bit-equal); sp runs
+# the MLPs and the head on 8 views, not 16, and the cross-view attention as
+# two blocks folded by lse against one flash call over 20816 keys (bf16 O
+# and p rounded against another bound)
+MULTI_TRIANGLE = 2.0
+# the bound forward at the multi-device paths' shapes: chunk 16 (dp, pp) at
+# SMALL and giant width, and sp's 8 local views within a view (its ring hops
+# are MESH_CASES' 8 x 1301 keys)
+MULTI_CASES = [
+    ("chunk16_intra", torch.bfloat16, (16, 1301, 6, 64)),
+    ("chunk16_cross", torch.bfloat16, (1, 16 * 1301, 6, 64)),
+    ("sp_intra", torch.bfloat16, (8, 1301, 6, 64)),
+    ("giant16_intra", torch.bfloat16, (16, 1301, 24, 64)),
+    ("giant16_cross", torch.bfloat16, (1, 16 * 1301, 24, 64)),
+]
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_VIEWS, TRAIN_HW = 5, 2, 4, 504
 TRAIN_ARGS = ["--preset", "small", "--mode", "dp", "--steps", str(TRAIN_STEPS),
               "--batch", str(TRAIN_BATCH), "--views", str(TRAIN_VIEWS),
@@ -810,7 +861,8 @@ def phase_forwards() -> dict:
     for kernel, fwd, ref, cases in (
         ("flash_attn_bound_fwd", fa.flash_attention_bound, fa.flash_attention_bound_reference,
          [(n, d, s, 1.0) for n, d, s in KERNEL_CASES + LARGE_CASES + JOINT_CASES
-          + MESH_CASES + GIANT_CASES + EDGE_CASES + F32_EDGE_CASES + F32_LONG_CASES]),
+          + MESH_CASES + GIANT_CASES + MULTI_CASES + EDGE_CASES + F32_EDGE_CASES
+          + F32_LONG_CASES]),
         ("flash_attn_stable_fwd", fa.flash_attention_stable, fa.flash_attention_stable_reference,
          STABLE_CASES),
     ):
@@ -3260,6 +3312,244 @@ def phase_evaluate(nested_out: Path) -> None:
         fail(f"evaluate: the C3VD scores {c3vd} miss the known answers")
 
 
+def _multi_net(preset: str):
+    """``(cfg, net)``: the preset made on the card from seed 0, LayerScale
+    MULTI_LAYERSCALE (see MULTI_CHUNK)."""
+    from da3slam_tpu_torch.models.config import get_preset
+    from da3slam_tpu_torch.models.da3 import init_params
+
+    cfg = get_preset(preset)
+    net = init_params(cfg, 0, device="cuda").eval()
+    with torch.no_grad():
+        for blk in net.blocks:
+            blk.ls1.gamma.fill_(MULTI_LAYERSCALE)
+            blk.ls2.gamma.fill_(MULTI_LAYERSCALE)
+    return cfg, net
+
+
+def _multi_kw() -> dict:
+    from da3slam_tpu_torch.slam.alignment import AlignmentConfig
+
+    return dict(chunk_size=MULTI_CHUNK, overlap=1, process_hw=(504, 504),
+                align_config=AlignmentConfig(method="umeyama"))
+
+
+def _held_bytes(*modules) -> int:
+    return sum(t.numel() * t.element_size() for m in modules
+               for t in (*m.parameters(), *m.buffers()))
+
+
+def _multi_expected(cfg, mode: str, world: int) -> int:
+    """Bound-forward launches a rank makes over the two windows: one a block a
+    window it encodes, and in sp one a hop (``world`` of them) a cross-view
+    block."""
+    cross = sum(i % cfg.cross_view_interval == cfg.cross_view_interval - 1
+                for i in range(cfg.depth))
+    if mode == "dp":
+        return cfg.depth * -(-MULTI_WINDOWS // world)
+    if mode == "sp":
+        return MULTI_WINDOWS * (cfg.depth - cross + cross * world)
+    return MULTI_WINDOWS * cfg.depth // world
+
+
+def _ring_check(group) -> list:
+    """The card's ring (bound forward per hop, folded by lse) against its
+    plain version (the JAX online softmax) on the card, at sp's hop shape:
+    each rank's 8 views of 1301 tokens, 6 heads, bf16.  A ring that skipped
+    its hops (the local block alone) must break the bound.  Every rank's row."""
+    import torch.distributed as dist
+
+    from da3slam_tpu_torch.parallel.ring_attention import (
+        ring_attention_flash,
+        ring_attention_reference,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(10 + dist.get_rank(group))
+    shape = (1, MULTI_CHUNK // MULTI_RANKS * 1301, 6, 64)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    o = ring_attention_flash(q, k, v, group)
+    ref = ring_attention_reference(q, k, v, group)
+    local = ring_attention_reference(q, k, v, None)
+    row = {"shape": list(shape), "max_abs_err": (o.float() - ref.float()).abs().max().item(),
+           "tol": BF16_REL_TOL * ref.float().abs().max().item(),
+           "hopless_max_abs_err": (local.float() - ref.float()).abs().max().item(),
+           "ms": cuda_ms(lambda: ring_attention_flash(q, k, v, group), reps=3),
+           "plain_ms": cuda_ms(lambda: ring_attention_reference(q, k, v, group), reps=1)}
+    out = [None] * dist.get_world_size(group)
+    dist.all_gather_object(out, row, group=group)
+    return out
+
+
+def mesh_rank(preset: str, modes: list[str]) -> dict:
+    """One rank of the multi-device phases (run by ``run_ranks``): for each
+    mode, a mesh of every rank, the model (a pp rank keeps its stage only),
+    one warm run of ``run_streaming_slam(mesh=...)`` over the 31 frames, then
+    every launch count set to 0, the measured run, the counts read.  Rank 0
+    returns the outputs and every rank's launches, host-staged bytes,
+    parameter bytes, peak memory and wall time."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from da3slam_tpu_torch.parallel import comm, make_mesh
+    from da3slam_tpu_torch.slam.pipeline import run_streaming_slam, split_params_pp
+
+    world = dist.get_world_size()
+    frames = make_frames(N_FRAMES)
+    results = {}
+    for mode in modes:
+        cfg, net = _multi_net(preset)
+        mesh = make_mesh() if mode == "dp" else \
+            DeviceMesh("cuda", torch.arange(world), mesh_dim_names=(mode,))
+        if mode == "pp":  # keep this rank's stage; the other blocks are freed
+            net = split_params_pp(net, world, mesh)
+            held = _held_bytes(net.stage_blocks, net.enc_rest, net.heads)
+        else:
+            held = _held_bytes(net)
+        torch.cuda.empty_cache()
+        kw = dict(_multi_kw(), mesh=mesh, parallel=mode)
+        run_streaming_slam(net, frames, cfg, **kw)
+        torch.cuda.synchronize()
+        dist.barrier()
+        for fn in counters().values():
+            fn.launches = 0
+        comm.host_bytes = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = run_streaming_slam(net, frames, cfg, **kw)
+        torch.cuda.synchronize()
+        dist.barrier()
+        stats = {"launches": {name: fn.launches for name, fn in counters().items()},
+                 "host_bytes": comm.host_bytes, "param_bytes": held,
+                 "peak_bytes": torch.cuda.max_memory_allocated(),
+                 "wall_s": time.perf_counter() - t0}
+        ranks = [None] * world
+        dist.all_gather_object(ranks, stats)
+        results[mode] = {"ranks": ranks, "out": [t.cpu().numpy() for t in out]
+                         if dist.get_rank() == 0 else None}
+        if mode == "sp":
+            results[mode]["ring"] = _ring_check(mesh.get_group("sp"))
+        del net, out
+        torch.cuda.empty_cache()
+    return results
+
+
+def _multi_reference(path_launches: dict, preset: str) -> dict:
+    """The single-process run the mesh phases are held to: the same model,
+    frames and arguments with mesh=None (a warm run, then the counted one),
+    and the same in f32."""
+    from da3slam_tpu_torch.slam.pipeline import run_streaming_slam
+
+    cfg, net = _multi_net(preset)
+    frames = make_frames(N_FRAMES)
+    f32 = run_streaming_slam(net, frames, cfg, dtype=torch.float32, **_multi_kw())
+    f32 = [t.cpu().numpy() for t in f32]
+    run_streaming_slam(net, frames, cfg, **_multi_kw())  # warm, as the ranks are
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with counted(path_launches, f"mesh_reference_{preset}"):
+        t0 = time.perf_counter()
+        out = run_streaming_slam(net, frames, cfg, **_multi_kw())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = path_launches[f"mesh_reference_{preset}"]
+    if launches != expected_launches(flash_attn_bound_fwd=MULTI_WINDOWS * cfg.depth):
+        fail(f"mesh reference {preset}: launches {launches}")
+    ref = {"out": [t.cpu().numpy() for t in out], "f32": f32, "wall_s": wall, "cfg": cfg,
+           "preset": preset,
+           "param_bytes": _held_bytes(net), "peak_bytes": torch.cuda.max_memory_allocated()}
+    del net, out
+    torch.cuda.empty_cache()
+    return ref
+
+
+def _emit_mesh(path_launches: dict, phase: str, mode: str, backend: str, res: dict, ref: dict,
+               spawn_s: float, require_bit_equal: bool) -> None:
+    from da3slam_tpu_torch.slam.pipeline import PipelineOutput
+
+    cfg, world = ref["cfg"], len(res["ranks"])
+    errs, ok = {}, True
+    for name, a, b, b32 in zip(PipelineOutput._fields, res["out"], ref["out"], ref["f32"]):
+        if a.shape != b.shape or not np.isfinite(a).all():
+            fail(f"{phase}: {name} shape {a.shape} vs {b.shape} or non-finite")
+        diff = float(np.abs(a.astype(np.float64) - b).max())
+        bf16_vs_f32 = float(np.abs(b.astype(np.float64) - b32).max())
+        errs[name] = {"max_abs": diff, "rel": diff / max(float(np.abs(b).max()), 1e-30),
+                      "single_bf16_vs_f32": bf16_vs_f32, "tol": MULTI_TRIANGLE * bf16_vs_f32}
+        ok = ok and diff <= MULTI_TRIANGLE * bf16_vs_f32
+    bit_equal = all(np.array_equal(a, b) for a, b in zip(res["out"], ref["out"]))
+    want = expected_launches(flash_attn_bound_fwd=_multi_expected(cfg, mode, world))
+    for r, st in enumerate(res["ranks"]):
+        path_launches[f"{phase}.rank{r}"] = st["launches"]
+    wall = max(st["wall_s"] for st in res["ranks"])
+    emit(phase, preset=ref["preset"], mode=mode, backend=backend,
+         ranks=world, frames=N_FRAMES, chunk_size=MULTI_CHUNK, windows=MULTI_WINDOWS,
+         dtype="bfloat16", layerscale=MULTI_LAYERSCALE, align="umeyama",
+         vs_single_process=errs, bit_equal=bit_equal,
+         launches_per_rank=[st["launches"]["flash_attn_bound_fwd"] for st in res["ranks"]],
+         expected_launches_per_rank=want["flash_attn_bound_fwd"],
+         host_staged_bytes_per_rank=[st["host_bytes"] for st in res["ranks"]],
+         param_bytes_per_rank=[st["param_bytes"] for st in res["ranks"]],
+         peak_bytes_per_rank=[st["peak_bytes"] for st in res["ranks"]],
+         wall_s=wall, frames_per_s=N_FRAMES / wall,
+         wall_note=(f"{world} ranks time-sharing one card: not a scaling measurement"
+                    if world > 1 else "one rank"),
+         single_process_wall_s=ref["wall_s"], single_process_frames_per_s=N_FRAMES / ref["wall_s"],
+         single_process_param_bytes=ref["param_bytes"],
+         single_process_peak_bytes=ref["peak_bytes"],
+         spawn_s=spawn_s, ring=res.get("ring"))
+    for r, st in enumerate(res["ranks"]):
+        if st["launches"] != want:
+            fail(f"{phase}: rank {r} launches {st['launches']} != {want}")
+    if not ok:
+        fail(f"{phase}: beyond the bf16 bound of the single-process run: {errs}")
+    if require_bit_equal and not bit_equal:
+        fail(f"{phase}: not bit-equal to the single-process run: {errs}")
+    for row in res.get("ring") or []:
+        if not row["max_abs_err"] <= row["tol"] < row["hopless_max_abs_err"]:
+            fail(f"{phase}: ring against its plain version {row}")
+
+
+def phase_mesh(path_launches: dict) -> dict:
+    """34-36. mesh_dp, mesh_sp, mesh_pp: SMALL on two gloo ranks sharing the
+    card (one spawn for the three), each held to the single-process run."""
+    from da3slam_tpu_torch.ops.flash_attention import build_kernel
+    from da3slam_tpu_torch.parallel import run_ranks
+
+    build_kernel()  # in this process, before the ranks look for it
+    ref = _multi_reference(path_launches, "small")
+    t0 = time.perf_counter()
+    res = run_ranks(mesh_rank, MULTI_RANKS, "gloo", "cuda", MULTI_TIMEOUT_S, "small",
+                    ["dp", "sp", "pp"])
+    spawn_s = time.perf_counter() - t0
+    for mode in ("dp", "sp", "pp"):
+        _emit_mesh(path_launches, f"mesh_{mode}", mode, "gloo", res[mode], ref, spawn_s,
+                   require_bit_equal=False)
+    return ref
+
+
+def phase_mesh_nccl(path_launches: dict, ref: dict) -> None:
+    """37. mesh_nccl: dp on one NCCL rank, bit-equal to the single-process run."""
+    from da3slam_tpu_torch.parallel import run_ranks
+
+    t0 = time.perf_counter()
+    res = run_ranks(mesh_rank, 1, "nccl", "cuda", MULTI_TIMEOUT_S, "small", ["dp"])
+    _emit_mesh(path_launches, "mesh_nccl", "dp", "nccl", res["dp"], ref,
+               time.perf_counter() - t0, require_bit_equal=True)
+
+
+def phase_mesh_pp_giant(path_launches: dict) -> None:
+    """38. mesh_pp_giant: the giant tier (40 blocks, SwiGLU) in two stages of
+    20 on two gloo ranks, each holding its stage only."""
+    from da3slam_tpu_torch.parallel import run_ranks
+
+    ref = _multi_reference(path_launches, "giant")
+    t0 = time.perf_counter()
+    res = run_ranks(mesh_rank, MULTI_RANKS, "gloo", "cuda", MULTI_TIMEOUT_S, "giant", ["pp"])
+    _emit_mesh(path_launches, "mesh_pp_giant", "pp", "gloo", res["pp"], ref,
+               time.perf_counter() - t0, require_bit_equal=False)
+
+
 SOURCES = {
     "flash_attn_bound_fwd": ("da3slam_tpu_torch/ops/csrc/flash_attn_fwd.cu",
                              "da3slam_tpu/ops/flash_attention.py:116", "cross"),
@@ -3324,6 +3614,9 @@ def main() -> None:
     phase_parity_cli(*phase_nested_parity())
     phase_main_conf(path_launches)
     phase_evaluate(nested_out)
+    small_ref = phase_mesh(path_launches)
+    phase_mesh_nccl(path_launches, small_ref)
+    phase_mesh_pp_giant(path_launches)
     kernels = []
     for name, (source, replaces, headline) in SOURCES.items():
         by_path = {path: counts[name] for path, counts in path_launches.items()}

@@ -11,7 +11,7 @@ Same flags and JSON lines as the JAX package's CLI, plus ``--device``
 (default ``cuda``; the run happens there or not at all, with no fallback to
 the CPU).  ``--mode dp`` runs its windows on that one device.  ``--mode
 sp|pp`` and meshes of more than one device (``--devices``, ``--tp``,
-``--stages``) are not ported yet (ROADMAP.md, modules queue item 14) and
+``--stages``) are not ported yet (ROADMAP.md, modules queue item 14b) and
 raise ``NotImplementedError``.
 
 The header's ``params`` counts the port's parameters: ``embed_dim`` more than
@@ -34,7 +34,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-_UNPORTED = "is not ported yet (ROADMAP.md, modules queue item 14: sp/pp/multi-device training)"
+_UNPORTED = "is not ported yet (ROADMAP.md, modules queue item 14b: sp/pp/multi-device training)"
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -164,15 +164,17 @@ def layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     return out.to(x.dtype)
 
 
-def _attn_core(attn: Attention, qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """Split → attention → out-projection, shared by the float and the W8A8
-    QKV producers.  qkv: ``[B, S, 3D]`` → ``[B, S, D]``."""
+def _attn_core(attn: Attention, qkv: torch.Tensor, num_heads: int,
+               attn_fn=multi_head_attention) -> torch.Tensor:
+    """Split → attention (``attn_fn`` on ``[B, S, H, Dh]``) → out-projection,
+    shared by the float and the W8A8 QKV producers.  qkv: ``[B, S, 3D]`` →
+    ``[B, S, D]``."""
     B, S, D3 = qkv.shape
     D = D3 // 3
     hd = D // num_heads
     q, k, v = qkv.split(D, dim=-1)
     q, k, v = (t.reshape(B, S, num_heads, hd).contiguous() for t in (q, k, v))
-    out = multi_head_attention(q, k, v).reshape(B, S, D)
+    out = attn_fn(q, k, v).reshape(B, S, D)
     return linear(attn.proj, out)
 
 
@@ -193,19 +195,28 @@ def _mlp_w8a8(mlp: Mlp | SwiGLU, x8: torch.Tensor, xs: torch.Tensor, dtype) -> t
     return mlp.fc2(h8, hs, dtype)
 
 
-def _block(blk: Block, x: torch.Tensor, num_heads: int, cross_view: bool) -> torch.Tensor:
+def _block(blk: Block, x: torch.Tensor, num_heads: int, cross_view: bool,
+           cross_attn_impl=None) -> torch.Tensor:
     """x: ``[N, S, D]`` (N views).  Cross-view blocks fold the views into one
-    sequence."""
+    sequence.
+
+    ``cross_attn_impl`` lets cross-view blocks take another attention (e.g.
+    the ring over a view-sharded mesh axis, ``parallel/ring_attention.py``)
+    while intra-view blocks stay local: a function on ``[B, S, H, Dh]``, or
+    None for ``multi_head_attention``."""
     N, S, D = x.shape
     h = x.reshape(1, N * S, D) if cross_view else x
+    attn_fn = cross_attn_impl if cross_view and cross_attn_impl is not None \
+        else multi_head_attention
     if isinstance(blk.attn.qkv, Int8Linear):  # made by quantize_encoder
         x8, xs = layer_norm_quant(blk.norm1.weight, blk.norm1.bias, h, blk.norm1.eps)
-        a = _attn_core(blk.attn, blk.attn.qkv(x8, xs, x.dtype), num_heads)
+        a = _attn_core(blk.attn, blk.attn.qkv(x8, xs, x.dtype), num_heads, attn_fn)
         h = h + a * blk.ls1.gamma.to(x.dtype)
         m8, ms = layer_norm_quant(blk.norm2.weight, blk.norm2.bias, h, blk.norm2.eps)
         m = _mlp_w8a8(blk.mlp, m8, ms, x.dtype)
     else:
-        a = _attn_core(blk.attn, linear(blk.attn.qkv, layer_norm(blk.norm1, h)), num_heads)
+        a = _attn_core(blk.attn, linear(blk.attn.qkv, layer_norm(blk.norm1, h)), num_heads,
+                       attn_fn)
         h = h + a * blk.ls1.gamma.to(x.dtype)
         m = _mlp(blk.mlp, layer_norm(blk.norm2, h))
     h = h + m * blk.ls2.gamma.to(x.dtype)
@@ -245,13 +256,15 @@ def embed(
 
 
 def encode(
-    enc: ViTEncoder, images: torch.Tensor, cfg: ModelConfig, dtype=torch.float32
+    enc: ViTEncoder, images: torch.Tensor, cfg: ModelConfig, dtype=torch.float32,
+    cross_attn_impl=None,
 ) -> tuple[list[torch.Tensor], torch.Tensor, tuple[int, int]]:
     """Run the encoder over a chunk of views.
 
     Args:
       images: ``[N, H, W, 3]`` float, ImageNet-normalised, H/W multiples of
               ``patch_size``.
+      cross_attn_impl: the cross-view blocks' attention (``_block``).
 
     Returns:
       taps:  list of ``[N, S, D]`` activations at ``cfg.dpt_layers`` (post-block)
@@ -266,9 +279,10 @@ def encode(
         if cfg.remat:
             # recompute the block's activations in the backward pass (trade
             # FLOPs for memory when training the large tiers)
-            x = checkpoint(_block, blk, x, cfg.num_heads, cross, use_reentrant=False)
+            x = checkpoint(_block, blk, x, cfg.num_heads, cross, cross_attn_impl,
+                           use_reentrant=False)
         else:
-            x = _block(blk, x, cfg.num_heads, cross)
+            x = _block(blk, x, cfg.num_heads, cross, cross_attn_impl)
         if i in tap_set:
             taps.append(x)
     return taps, layer_norm(enc.norm, x), grid

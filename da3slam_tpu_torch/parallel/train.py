@@ -4,9 +4,9 @@
 
 The loss is the JAX package's: confidence-weighted scale-invariant log-depth
 loss plus a pose loss, per window, averaged over the windows of a batch;
-AdamW with optax's defaults.  The sp/pp steps, the mesh and every other
-multi-device part are not ported yet (ROADMAP.md, modules queue item 14).
-"""
+AdamW with optax's defaults.  The dp×tp, sp and pp train steps are not
+ported yet (ROADMAP.md, modules queue item 14b); the mesh is
+(``parallel/mesh.py``)."""
 
 from __future__ import annotations
 

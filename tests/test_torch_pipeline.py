@@ -11,6 +11,12 @@ comparisons.  Within the port every variant (segments, spill target, frames
 given as a tensor, the solver's loop) queues the same operations on the same
 inputs, so they are held bit-equal, with ICP; the solver comparison allows
 1e-4 because ``SLAMSolver`` fetches each chunk to numpy and back.
+
+The multi-device pipelines (dp, sp, pp) run on gloo ranks on the CPU
+(``parallel/mesh.py:run_ranks``; the ranks run
+``tests/test_torch_rank_bodies.py:slam_runs``, one spawn per mode and world
+size) against the JAX package's on its virtual mesh, at the same bound; a
+one-rank mesh is held bit-equal to ``mesh=None``.
 """
 
 import numpy as np
@@ -19,9 +25,11 @@ import torch
 
 import jax
 import jax.numpy as jnp
+from jax.sharding import Mesh
 
 from da3slam_tpu.models.config import get_preset as jget_preset
 from da3slam_tpu.models.da3 import init_params as jinit
+from da3slam_tpu.parallel import make_mesh as jmake_mesh
 from da3slam_tpu.slam.alignment import AlignmentConfig as JAlignmentConfig
 from da3slam_tpu.slam.pipeline import make_windows as jmake_windows
 from da3slam_tpu.slam.pipeline import run_streaming_slam as jrun_streaming_slam
@@ -29,6 +37,7 @@ from da3slam_tpu_torch.core.transforms import se3_inverse, se3_to_4x4
 from da3slam_tpu_torch.models.config import get_preset
 from da3slam_tpu_torch.models.convert import convert
 from da3slam_tpu_torch.models.da3 import DA3Net, DepthAnything3
+from da3slam_tpu_torch.parallel import run_ranks
 from da3slam_tpu_torch.slam.alignment import AlignmentConfig
 from da3slam_tpu_torch.slam.chunks import make_image_chunks, run_chunked_alignment
 from da3slam_tpu_torch.slam.pipeline import (
@@ -38,6 +47,8 @@ from da3slam_tpu_torch.slam.pipeline import (
     run_streaming_slam,
 )
 from da3slam_tpu_torch.slam.solver import SLAMSolver
+
+import test_torch_rank_bodies as bodies
 
 torch.set_num_threads(2)
 CFG = get_preset("tiny")
@@ -179,7 +190,7 @@ class TestVariants:
         frames = np.zeros((8, 28, 28, 3), np.uint8)
         with pytest.raises(ValueError, match="parallel"):
             run_streaming_slam(net, frames, CFG, chunk_size=4, overlap=1, parallel="tp")
-        with pytest.raises(NotImplementedError, match="queue 1, item 14"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             run_streaming_slam(net, frames, CFG, chunk_size=4, overlap=1, mesh=object())
         with pytest.raises(ValueError, match="segment_spill"):
             run_streaming_slam(net, frames, CFG, chunk_size=4, overlap=1, segment_windows=1,
@@ -237,3 +248,108 @@ class TestAgainstThePortsOwnLoops:
             assert fused[key].shape == want.shape == (n, *want.shape[1:])
             np.testing.assert_allclose(fused[key], want, atol=1e-4, rtol=1e-4, err_msg=key)
         assert fused["images"].shape == (n, 56, 70, 3) and fused["images"].dtype == np.uint8
+
+
+SPAWN_TIMEOUT_S = 120
+UMEYAMA = dict(KW, align_config=AlignmentConfig(method="umeyama"))
+# the runs of each spawn, by (mode, world size); "no_mesh" is mesh=None
+MESH_RUNS = {
+    ("dp", 1): {"mesh": KW, "none": dict(KW, no_mesh=True)},
+    ("dp", 2): {"whole": UMEYAMA, "segmented": dict(UMEYAMA, segment_windows=2),
+                "f16": dict(UMEYAMA, spill_dtype=torch.float16)},
+    ("dp", 3): {"whole": UMEYAMA},
+    ("dp", 4): {"whole": UMEYAMA},
+    ("sp", 2): {"whole": UMEYAMA, "segmented": dict(UMEYAMA, segment_windows=2)},
+    ("pp", 2): {"whole": UMEYAMA, "segmented": dict(UMEYAMA, segment_windows=2),
+                "share": dict(UMEYAMA, segment_windows=2, pp_share=True)},
+}
+JAX_KW = {"whole": {}, "segmented": {"segment_windows": 2}, "f16": {"spill_dtype": jnp.float16}}
+
+
+@pytest.fixture(scope="module")
+def spawned(net):
+    """``(mode, world)`` → that spawn's results, spawned on first use."""
+    state = {k: v.numpy() for k, v in net.state_dict().items()}
+    cache = {}
+
+    def get(mode: str, world: int) -> dict:
+        if (mode, world) not in cache:
+            cache[mode, world] = run_ranks(bodies.slam_runs, world, "gloo", "cpu",
+                                           SPAWN_TIMEOUT_S, state, make_frames(), mode,
+                                           MESH_RUNS[mode, world])
+        return cache[mode, world]
+
+    return get
+
+
+def jrun_on_mesh(jparams, mode: str, world: int, run: str):
+    mesh = jmake_mesh(world, tp=1) if mode == "dp" else \
+        Mesh(np.asarray(jax.devices()[:world]), axis_names=(mode,))
+    return jrun_streaming_slam(
+        jparams, make_frames(), jget_preset("tiny"), chunk_size=4, overlap=1,
+        process_hw=(56, 70), dtype=jnp.float32, align_config=JAlignmentConfig(method="umeyama"),
+        mesh=mesh, parallel=mode, **JAX_KW[run])
+
+
+class TestMultiDevice:
+    @pytest.mark.parametrize("mode,world,run", [
+        ("dp", 2, "whole"), ("dp", 2, "segmented"), ("dp", 2, "f16"), ("dp", 3, "whole"),
+        ("dp", 4, "whole"), ("sp", 2, "whole"), ("sp", 2, "segmented"), ("pp", 2, "whole"),
+        ("pp", 2, "segmented")])
+    def test_matches_jax(self, spawned, jparams, mode, world, run):
+        """dp at 3 ranks pads the 4 windows to 6 with repeats of the last."""
+        out = spawned(mode, world)["outs"][run]
+        jout = arrays(jrun_on_mesh(jparams, mode, world, run))
+        for name, a, b in zip(PipelineOutput._fields, out, jout):
+            assert a.shape == b.shape and a.dtype == b.dtype, name
+            assert np.isfinite(a).all(), name
+            if a.dtype == np.float16:
+                # maps within 1e-4 in f32 may round to neighbouring f16 values
+                np.testing.assert_allclose(a.astype(np.float32), b.astype(np.float32),
+                                           atol=1e-4, rtol=2.0 ** -10, err_msg=name)
+            else:
+                np.testing.assert_allclose(a, b, atol=1e-4, rtol=1e-4, err_msg=name)
+
+    @pytest.mark.parametrize("mode,world", sorted(MESH_RUNS))
+    def test_every_rank_returns_the_whole(self, spawned, mode, world):
+        res = spawned(mode, world)
+        assert all(len(set(d)) == 1 for d in res["digests"].values())
+        assert res["foreign"] == [[]] * world  # no rank imported JAX or the JAX package
+
+    def test_one_rank_equals_no_mesh(self, spawned):
+        """A one-rank dp mesh is the one-device loop, bit for bit (ICP)."""
+        outs = spawned("dp", 1)["outs"]
+        for name, a, b in zip(PipelineOutput._fields, outs["mesh"], outs["none"]):
+            np.testing.assert_array_equal(a, b, err_msg=name)
+
+    def test_f16_spill_on_mesh(self, spawned):
+        outs = spawned("dp", 2)["outs"]
+        assert outs["f16"][0].dtype == np.float16 and outs["f16"][1].dtype == np.float16
+        d32 = outs["whole"][0]
+        np.testing.assert_allclose(outs["f16"][0].astype(np.float32), d32, rtol=1e-3,
+                                   atol=1e-3 * np.abs(d32).max())
+        for i in range(2, 6):  # poses, intrinsics, scales: the cast is at the emit only
+            np.testing.assert_array_equal(outs["f16"][i], outs["whole"][i])
+
+    def test_pp_share_equals_whole_network(self, spawned):
+        """A rank's pre-split share (the other stages' blocks dropped) runs
+        the segments as the whole network does."""
+        outs = spawned("pp", 2)["outs"]
+        for name, a, b in zip(PipelineOutput._fields, outs["share"], outs["whole"]):
+            np.testing.assert_array_equal(a, b, err_msg=name)
+
+    def test_pp_share_needs_its_mesh(self, net):
+        from torch import nn
+
+        from da3slam_tpu_torch.parallel.pp_forward import EncoderRest
+        from da3slam_tpu_torch.slam.pipeline import PPParams
+
+        share = PPParams(nn.ModuleList(), EncoderRest(net), nn.ModuleDict())
+        with pytest.raises(ValueError, match="parallel='pp'"):
+            run_streaming_slam(share, make_frames(), CFG, **KW)
+
+    @pytest.mark.parametrize("mode", ["dp", "sp", "pp"])
+    def test_segmented_equals_whole(self, spawned, mode):
+        outs = spawned(mode, 2)["outs"]
+        for name, a, b in zip(PipelineOutput._fields, outs["segmented"], outs["whole"]):
+            np.testing.assert_array_equal(a, b, err_msg=name)
