@@ -144,18 +144,37 @@ final line:
     count from its blocks and hops, its bytes staged through the host, its
     parameter bytes and peak memory, the wall time (time-shared, not scaling);
     sp also holds the card's ring (a bound forward per hop, folded by lse)
-    against its plain version at the hop shape
+    against its plain version at the hop shape, and its whole run in f32 (TF32
+    off) against the single-process f32 run within MODEL_PARITY_TOL: what
+    tells bf16 reassociation from a ring fault
 37. mesh_nccl: dp on one NCCL rank, bit-equal to the single-process run
 38. mesh_pp_giant: the giant tier (40 blocks, SwiGLU) in two stages of 20 on
     two gloo ranks, each holding its stage of the blocks only
+39-44. train_tp, train_sp, train_pp, train_giant_tp, train_tp4, train_nccl:
+    ``cli/train``'s loop (what its spawned ranks run) at SMALL, 504², f32:
+    dp x tp on a (1, 2) mesh (3 steps of 2 windows x 4 views), sp on 2 ranks
+    (3 steps of one 8-view window: ring hops of (1, 5204, 6, 64)), pp in 2
+    stages (3 steps of 3 microbatches of 2 views), giant's widths cut to 4
+    blocks on a (1, 2) mesh (one step: the split of SwiGLU's w12), a (2, 2)
+    mesh on 4 ranks (one step), all on gloo ranks sharing the card, and one
+    NCCL rank on a (1, 1) mesh; per rank the launches of the bound forward,
+    dq and dk/dv against the count from blocks, windows and hops, bytes
+    through the host, parameter and moment bytes, peak memory, steps/s
+    (time-shared: function, not scaling); replicated parameters bit-equal
+    across the ranks; one step's every gradient, put back together, against
+    the single-process step on the card (TRAIN_MESH_ARGS); sp also holds the
+    ring's backward (the dq and dk/dv kernels a hop) against its plain
+    version at the hop shape in f32 and bf16, and NCCL the one-device step
+    bit for bit (as far as that step repeats itself)
 
 The forward phase (3) also holds the bound forward at that joint length, at
 main_mesh's chunk-8 cross length (S = 10408, also sp's ring hop), at the
 nested tier's giant and metric shapes and at the multi-device paths' (chunk
 16 at SMALL and giant width, sp's 8 views).
 Each driven path (7 twice, 8, 9, 13, 14, 15, 16, 18, 20, 21, 22, 23, 24 twice,
-25, 26 twice, 27, 29, 32, and 34-38 on each rank and in their single-process
-runs) sets every launch count to 0 just before it and reads them just after.  The ``kernels`` line gives each kernel's
+25, 26 twice, 27, 29, 32, and 34-44 on each rank and 34-38 in their
+single-process runs) sets every launch count to 0 just before it and reads
+them just after.  The ``kernels`` line gives each kernel's
 launches, error, time, plain version's time, roofline bound (from the shapes
 of this run, against the H100 SXM data sheet's peaks) and, where one PyTorch
 call computes the same function, that call's time (timed here, used nowhere
@@ -522,6 +541,54 @@ TRAIN_STEPS, TRAIN_BATCH, TRAIN_VIEWS, TRAIN_HW = 5, 2, 4, 504
 TRAIN_ARGS = ["--preset", "small", "--mode", "dp", "--steps", str(TRAIN_STEPS),
               "--batch", str(TRAIN_BATCH), "--views", str(TRAIN_VIEWS),
               "--hw", str(TRAIN_HW), str(TRAIN_HW), "--log_every", "1"]
+
+
+# Multi-device training (phases 39-44): the train steps on ranks of one
+# process group sharing the card (gloo; NCCL refuses two ranks on one GPU),
+# and one NCCL rank.  SMALL at 504², f32 as cli/train runs, random weights
+# from the seed.  Each mode runs cli/train's loop (``_train``, what the CLI's
+# spawned ranks run) with the CLI's arguments, counted; then one step of the
+# same step function from conditioned weights (TRAIN_GRAD_SEED; LayerScale
+# 0.5, the camera output layer x300, the DPT biases DPT_BIAS, random target
+# poses: phase_train_grad_parity's conditioning, so that every gradient is a
+# quantity) under highest_precision, whose every gradient, put back together
+# over the ranks, is held to the single-process step of the same weights and
+# batch on the card: every parameter's within MODEL_PARITY_TOL in relative
+# L2, and the encoder blocks' (the tensors tp splits, the sp ring's and the pp
+# stages' gradients) within it of their largest value too.  Elsewhere the
+# largest error is a noise measure: a DPT-head ReLU input within rounding of
+# 0 moves one position's whole term (card against CPU, SMALL: the head's
+# projects.0 at 5.9e-4 of its max, 1e-5 in L2, on an H100), and pos_embed's
+# gradient sums the views' terms of either sign at each position (sp against
+# one process: 9.0e-4 of its max).  At giant width the head's ReLU inputs
+# spread over tens, DPT_BIAS no longer keeps them off 0, and its gradients
+# move with every flipped unit (projects.0: 2.1e-3 in L2, tp against one
+# process): train_giant_tp holds the encoder's and reports the head's apart.
+TRAIN_MESH_TIMEOUT_S = 600
+TRAIN_MESH_ARGS = {
+    # dp x tp: 2 windows x 4 views, the blocks' linears split over 2 tp ranks
+    "tp": ["--mode", "dp", "--devices", "2", "--tp", "2", "--steps", "3", "--batch", "2",
+           "--views", "4"],
+    # sp: one window of 8 views, 4 a rank: each rank's ring hop is (1, 5204, 6, 64)
+    "sp": ["--mode", "sp", "--devices", "2", "--steps", "3", "--batch", "1", "--views", "8"],
+    # pp: 2 stages of 6 blocks, M = 3 microbatches of 2 views
+    "pp": ["--mode", "pp", "--stages", "2", "--steps", "3", "--batch", "3", "--views", "2"],
+    # a (2, 2) mesh: one window a dp rank
+    "tp4": ["--mode", "dp", "--devices", "4", "--tp", "2", "--steps", "1", "--batch", "2",
+            "--views", "4"],
+    # one NCCL rank, mesh (1, 1)
+    "nccl": ["--mode", "dp", "--devices", "1", "--steps", "3", "--batch", "2", "--views", "4"],
+    # giant's widths (D 1536, 24 heads, SwiGLU 4096) cut to TRAIN_GIANT_DEPTH
+    # blocks, all tapped by the DPT head, as the nested parity cell cuts them
+    # (NESTED_PARITY_DEPTH): tp 2 splits w12's gate and value
+    "giant_tp": ["--mode", "dp", "--devices", "2", "--tp", "2", "--steps", "1", "--batch", "1",
+                 "--views", "4"],
+}
+TRAIN_MESH_COMMON = ["--preset", "small", "--hw", "504", "504", "--log_every", "1"]
+TRAIN_GRAD_SEED, TRAIN_GRAD_LAYERSCALE = 3, 0.5
+TRAIN_GIANT_DEPTH = 4
+# the ring's backward at sp's hop, card against its plain version
+TRAIN_RING_SHAPE = (1, 4 * 1301, 6, 64)
 
 
 T_START = time.perf_counter()
@@ -3391,6 +3458,7 @@ def mesh_rank(preset: str, modes: list[str]) -> dict:
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
 
+    from da3slam_tpu_torch.core.transforms import highest_precision
     from da3slam_tpu_torch.parallel import comm, make_mesh
     from da3slam_tpu_torch.slam.pipeline import run_streaming_slam, split_params_pp
 
@@ -3429,6 +3497,10 @@ def mesh_rank(preset: str, modes: list[str]) -> dict:
                          if dist.get_rank() == 0 else None}
         if mode == "sp":
             results[mode]["ring"] = _ring_check(mesh.get_group("sp"))
+            with highest_precision():  # the f32 run, held to the single f32 run
+                out32 = run_streaming_slam(net, frames, cfg, **dict(kw, dtype=torch.float32))
+            results[mode]["f32_out"] = [t.cpu().numpy() for t in out32] \
+                if dist.get_rank() == 0 else None
         del net, out
         torch.cuda.empty_cache()
     return results
@@ -3437,12 +3509,14 @@ def mesh_rank(preset: str, modes: list[str]) -> dict:
 def _multi_reference(path_launches: dict, preset: str) -> dict:
     """The single-process run the mesh phases are held to: the same model,
     frames and arguments with mesh=None (a warm run, then the counted one),
-    and the same in f32."""
+    and the same in f32 (TF32 off)."""
+    from da3slam_tpu_torch.core.transforms import highest_precision
     from da3slam_tpu_torch.slam.pipeline import run_streaming_slam
 
     cfg, net = _multi_net(preset)
     frames = make_frames(N_FRAMES)
-    f32 = run_streaming_slam(net, frames, cfg, dtype=torch.float32, **_multi_kw())
+    with highest_precision():  # no TF32 in cuBLAS or cuDNN
+        f32 = run_streaming_slam(net, frames, cfg, dtype=torch.float32, **_multi_kw())
     f32 = [t.cpu().numpy() for t in f32]
     run_streaming_slam(net, frames, cfg, **_multi_kw())  # warm, as the ranks are
     torch.cuda.synchronize()
@@ -3478,6 +3552,12 @@ def _emit_mesh(path_launches: dict, phase: str, mode: str, backend: str, res: di
                       "single_bf16_vs_f32": bf16_vs_f32, "tol": MULTI_TRIANGLE * bf16_vs_f32}
         ok = ok and diff <= MULTI_TRIANGLE * bf16_vs_f32
     bit_equal = all(np.array_equal(a, b) for a, b in zip(res["out"], ref["out"]))
+    f32 = None  # sp in f32 against the single f32 run: the ring's own f32 bound
+    if res.get("f32_out") is not None:
+        f32 = {name: {"rel": float(np.abs(a.astype(np.float64) - b).max()
+                                   / max(float(np.abs(b).max()), 1e-30)),
+                      "tol": MODEL_PARITY_TOL}
+               for name, a, b in zip(PipelineOutput._fields, res["f32_out"], ref["f32"])}
     want = expected_launches(flash_attn_bound_fwd=_multi_expected(cfg, mode, world))
     for r, st in enumerate(res["ranks"]):
         path_launches[f"{phase}.rank{r}"] = st["launches"]
@@ -3497,7 +3577,7 @@ def _emit_mesh(path_launches: dict, phase: str, mode: str, backend: str, res: di
          single_process_wall_s=ref["wall_s"], single_process_frames_per_s=N_FRAMES / ref["wall_s"],
          single_process_param_bytes=ref["param_bytes"],
          single_process_peak_bytes=ref["peak_bytes"],
-         spawn_s=spawn_s, ring=res.get("ring"))
+         spawn_s=spawn_s, ring=res.get("ring"), f32_vs_single_f32=f32)
     for r, st in enumerate(res["ranks"]):
         if st["launches"] != want:
             fail(f"{phase}: rank {r} launches {st['launches']} != {want}")
@@ -3505,6 +3585,8 @@ def _emit_mesh(path_launches: dict, phase: str, mode: str, backend: str, res: di
         fail(f"{phase}: beyond the bf16 bound of the single-process run: {errs}")
     if require_bit_equal and not bit_equal:
         fail(f"{phase}: not bit-equal to the single-process run: {errs}")
+    if f32 is not None and not all(e["rel"] <= e["tol"] for e in f32.values()):
+        fail(f"{phase}: the f32 run beyond MODEL_PARITY_TOL of the single f32 run: {f32}")
     for row in res.get("ring") or []:
         if not row["max_abs_err"] <= row["tol"] < row["hopless_max_abs_err"]:
             fail(f"{phase}: ring against its plain version {row}")
@@ -3548,6 +3630,379 @@ def phase_mesh_pp_giant(path_launches: dict) -> None:
     res = run_ranks(mesh_rank, MULTI_RANKS, "gloo", "cuda", MULTI_TIMEOUT_S, "giant", ["pp"])
     _emit_mesh(path_launches, "mesh_pp_giant", "pp", "gloo", res["pp"], ref,
                time.perf_counter() - t0, require_bit_equal=False)
+
+
+def _train_cfg(mode: str):
+    from da3slam_tpu_torch.models.config import get_preset
+
+    if mode == "giant_tp":
+        return get_preset("giant").with_overrides(depth=TRAIN_GIANT_DEPTH,
+                                                  dpt_layers=tuple(range(TRAIN_GIANT_DEPTH)))
+    return get_preset("small")
+
+
+def _train_args(mode: str):
+    from da3slam_tpu_torch.cli import train as cli_train
+
+    return cli_train.build_parser().parse_args(TRAIN_MESH_COMMON + TRAIN_MESH_ARGS[mode])
+
+
+def _train_mesh_launches(cfg, mode: str, world: int) -> dict:
+    """Launches of the bound forward, dq and dk/dv a rank makes over a mode's
+    run: one each a block a window it encodes, and in sp one each a hop
+    (``world``) a cross-view block (remat off)."""
+    args = _train_args(mode)
+    cross = sum(i % cfg.cross_view_interval == cfg.cross_view_interval - 1
+                for i in range(cfg.depth))
+    if mode == "sp":
+        per_step = cfg.depth - cross + cross * world
+    elif mode == "pp":
+        per_step = cfg.depth // world * args.batch
+    else:  # dp: this rank's windows
+        per_step = cfg.depth * args.batch // (world // (args.tp or 1))
+    n = args.steps * per_step
+    return expected_launches(flash_attn_bound_fwd=n, flash_attn_bwd_dq=n, flash_attn_bwd_dkv=n)
+
+
+def _condition(net) -> None:
+    """TRAIN_GRAD_LAYERSCALE, the camera output layer x300 and the DPT biases
+    DPT_BIAS, on whatever part of the network ``net`` holds (replicated
+    parameters only, so a shard is conditioned as the whole is)."""
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if name.endswith(("ls1.gamma", "ls2.gamma")):
+                p.fill_(TRAIN_GRAD_LAYERSCALE)
+            elif name == "camera_head.out.weight":
+                p.mul_(300.0)
+        for m in net.depth_head.modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+                m.bias.fill_(DPT_BIAS)
+
+
+def _grad_batch(args) -> dict:
+    """The gradient check's batch (random target poses), in the mode's step
+    contract."""
+    from da3slam_tpu_torch.cli.train import _shape_batch
+    from da3slam_tpu_torch.parallel.train import synthetic_batch
+
+    b = synthetic_batch(None, args.batch, args.views, tuple(args.hw), seed=TRAIN_GRAD_SEED)
+    b["extrinsics"] = b["extrinsics"] + np.random.default_rng(9).normal(
+        scale=0.3, size=b["extrinsics"].shape).astype(np.float32)
+    return _shape_batch(args.mode, b)
+
+
+def _single_grads(cfg, mode: str, batch: dict) -> tuple[float, dict]:
+    """The single-process step's loss and gradients on the card (highest
+    precision) from the same weights (seed and conditioning) and batch: the
+    mode's loss over the whole network on one device."""
+    from da3slam_tpu_torch.core.transforms import highest_precision
+    from da3slam_tpu_torch.models import dpt, vit
+    from da3slam_tpu_torch.models.da3 import init_params
+    from da3slam_tpu_torch.parallel.train import depth_loss, window_loss
+
+    net = init_params(cfg, TRAIN_GRAD_SEED).to("cuda")
+    _condition(net)
+    b = {k: torch.from_numpy(v).to("cuda") for k, v in batch.items()}
+    with highest_precision():
+        if mode == "sp":
+            loss = window_loss(net, cfg, b["images"], b["depth"], b["extrinsics"])
+        elif mode == "pp":
+            M, N, H, W, _ = b["images"].shape
+            heads = []
+            for m in range(M):
+                taps, _, grid = vit.encode(net, b["images"][m], cfg)
+                heads.append(dpt.apply_dpt(net.depth_head, taps, grid, (H, W), cfg)[:2])
+            loss = depth_loss(torch.cat([d for d, _ in heads]), torch.cat([c for _, c in heads]),
+                              b["depth"].reshape(M * N, H, W))
+        else:
+            n = b["images"].shape[0]
+            loss = sum(window_loss(net, cfg, b["images"][w], b["depth"][w], b["extrinsics"][w])
+                       for w in range(n)) / n
+        loss.backward()
+    return loss.item(), {n: p.grad for n, p in net.named_parameters()}
+
+
+def _one_device_step(cfg, batch: dict) -> tuple[float, dict]:
+    """``make_train_step`` without a mesh from the conditioned weights: the
+    step's loss and gradients (highest precision)."""
+    from da3slam_tpu_torch.core.transforms import highest_precision
+    from da3slam_tpu_torch.parallel.train import make_train_step
+
+    init_fn, step_fn, place = make_train_step(cfg, "cuda")
+    state = init_fn(seed=TRAIN_GRAD_SEED)
+    _condition(state.net)
+    with highest_precision():
+        state, loss = step_fn(state, place(batch))
+    return loss.item(), {n: p.grad for n, p in state.net.named_parameters()}
+
+
+def _grad_check(cfg, mode: str, args, shape: dict) -> dict | None:
+    """One step of the mode's step function (``cli/train._step_factory``)
+    from the conditioned weights on every rank; rank 0 holds every gradient,
+    put back together over the ranks, to the single-process step's."""
+    import torch.distributed as dist
+
+    from da3slam_tpu_torch.cli.train import _step_factory
+    from da3slam_tpu_torch.core.transforms import highest_precision
+
+    init_fn, step_fn, place = _step_factory(args, cfg, shape, torch.device("cuda"))
+    state = init_fn(seed=TRAIN_GRAD_SEED)
+    _condition(state.net)
+    batch = _grad_batch(args)
+    with highest_precision():
+        state, loss = step_fn(state, place(batch))
+    whole = state.layout.gather({state.layout.whole_name(n): p.grad
+                                 for n, p in state.net.named_parameters()})
+    del state
+    if dist.get_rank() != 0:
+        return None
+    ref_loss, ref = _single_grads(cfg, mode, batch)
+    zero, bad = 0, []
+    worst = {"max_rel": (0.0, None), "blocks_max_rel": (0.0, None), "rel_l2": (0.0, None),
+             "head_rel_l2": (0.0, None)}
+    # at giant width the DPT head's ReLU inputs spread over tens, where
+    # DPT_BIAS does not keep them off 0: its gradients are reported apart
+    head_apart = mode == "giant_tp"
+    for name, g in whole.items():
+        r = ref[name]
+        if r is None:  # never read by the loss (the unused DPT unit)
+            bad += [name] if g.abs().max().item() else []
+            zero += 1
+            continue
+        g = g.to(r.device)
+        scale = r.abs().max().item()
+        if scale == 0.0:
+            zero += 1
+            bad += [name] if (g - r).abs().max().item() else []
+            continue
+        l2 = ((g - r).double().norm() / r.double().norm()).item()
+        in_head = head_apart and name.startswith("depth_head.")
+        errs = {"max_rel": (g - r).abs().max().item() / scale,
+                "rel_l2": 0.0 if in_head else l2, "head_rel_l2": l2 if in_head else 0.0}
+        errs["blocks_max_rel"] = errs["max_rel"] if name.startswith("blocks.") else 0.0
+        for key, e in errs.items():
+            if e > worst[key][0]:
+                worst[key] = (e, name)
+    out = {}
+    if mode == "nccl":
+        # the mesh step on a (1, 1) mesh runs the one-device step's operations:
+        # bit-equal to it, as far as the one-device step is to itself (run twice)
+        (loss_a, a), (loss_b, b) = _one_device_step(cfg, batch), _one_device_step(cfg, batch)
+        def rel(x, y):  # largest |x - y| of a parameter over its largest |y|
+            return max(((x[n] - y[n]).abs().max() / y[n].abs().max().clamp_min(1e-30)).item()
+                       for n in whole)
+
+        out["one_device_repeat_max_rel"] = rel(b, a)
+        out["one_device_repeatable"] = loss_a == loss_b and out["one_device_repeat_max_rel"] == 0
+        out["vs_one_device_max_rel"] = rel(whole, a)
+        out["bit_equal_to_one_device_step"] = loss_a == loss.item() and \
+            out["vs_one_device_max_rel"] == 0
+    return {**out, "loss": loss.item(), "single_loss": ref_loss, "params": len(whole),
+            "params_zero_grad": zero, "zero_in_single_not_here": bad,
+            **{key: e for key, (e, _) in worst.items()},
+            **{f"{key}_param": n for key, (_, n) in worst.items()}, "tol": MODEL_PARITY_TOL}
+
+
+def _ring_backward_check() -> list:
+    """The ring's backward (the dq and dk/dv kernels a hop, from the bound
+    forward ring's global lse) against its plain version (the same hops
+    through the kernels' plain versions, on the card) at sp's hop shape, f32
+    and bf16; the plain version without its hops (this rank's block alone)
+    must break the bound.  Every rank's rows."""
+    import torch.distributed as dist
+
+    from da3slam_tpu_torch.ops.flash_attention import (
+        flash_attention_bound,
+        flash_attention_bwd_dkv_reference,
+        flash_attention_bwd_dq_reference,
+    )
+    from da3slam_tpu_torch.parallel.ring_attention import _ring_lse, ring_attention_backward
+
+    group = dist.group.WORLD
+    plain = (flash_attention_bwd_dq_reference, flash_attention_bwd_dkv_reference)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device="cuda").manual_seed(20 + dist.get_rank())
+        q, k, v, do = (torch.randn(TRAIN_RING_SHAPE, generator=gen, device="cuda").to(dtype)
+                       for _ in range(4))
+        o, lse = _ring_lse(q, k, v, group, flash_attention_bound)
+        got = ring_attention_backward(q, k, v, o, lse, do, group)
+        ref = ring_attention_backward(q, k, v, o, lse, do, group, *plain)
+        hopless = ring_attention_backward(q, k, v, o, lse, do, None, *plain)
+        row = {"dtype": str(dtype).replace("torch.", ""), "shape": list(TRAIN_RING_SHAPE)}
+        for name, a, b, c in zip(("dq", "dk", "dv"), got, ref, hopless):
+            row[name] = {"max_abs_err": (a.float() - b.float()).abs().max().item(),
+                         "tol": grad_bound(b),
+                         "hopless_max_abs_err": (c.float() - b.float()).abs().max().item()}
+        row["ms"] = cuda_ms(lambda: ring_attention_backward(q, k, v, o, lse, do, group), reps=3)
+        row["plain_ms"] = cuda_ms(lambda: ring_attention_backward(q, k, v, o, lse, do, group,
+                                                                  *plain), reps=1)
+        rows.append(row)
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, rows)
+    return out
+
+
+def _digest(tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _replicated_names(mode: str, names: list[str]) -> list[str]:
+    """The parameters every rank of the mode holds whole."""
+    from da3slam_tpu_torch.parallel.sharding import replicated
+
+    if mode == "pp":
+        return [n for n in names if not n.startswith("blocks.")]
+    return [n for n in names if replicated(n)]
+
+
+def _run_mode(cfg, mode: str, args, shape: dict):
+    """The mode's counted run: cli/train's loop, or for giant_tp (the CLI has
+    no depth flag) one step of the step function the CLI builds.  Returns
+    ``(state, losses, rank 0's JSON lines)``."""
+    from da3slam_tpu_torch.cli import train as cli_train
+
+    if mode != "giant_tp":
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            state, losses = cli_train._train(args, shape)
+        return state, losses, out.getvalue().splitlines()
+    init_fn, step_fn, place = cli_train._step_factory(args, cfg, shape, torch.device("cuda"))
+    state = init_fn(seed=args.seed)
+    batch = place(_grad_batch(args))
+    t0 = time.perf_counter()
+    state, loss = step_fn(state, batch)
+    return state, [loss.item()], [json.dumps({"step": 1, "loss": loss.item(),
+                                              "steps_per_s": 1 / (time.perf_counter() - t0)})]
+
+
+def train_rank(modes: list[str]) -> dict:
+    """One rank of the multi-device training phases (run by ``run_ranks``):
+    for each mode, its run with every launch count and the host-byte count
+    set to 0 just before and read just after, then the gradient check, and
+    for sp the ring's backward check.  Rank 0 returns every rank's stats."""
+    import torch.distributed as dist
+
+    from da3slam_tpu_torch.cli.train import _mesh_shape
+    from da3slam_tpu_torch.models.da3 import DA3Net
+    from da3slam_tpu_torch.parallel import comm
+
+    results = {}
+    for mode in modes:
+        cfg, args = _train_cfg(mode), _train_args(mode)
+        shape = _mesh_shape(args, cfg)
+        torch.cuda.synchronize()
+        dist.barrier()
+        for fn in counters().values():
+            fn.launches = 0
+        comm.host_bytes = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, losses, lines = _run_mode(cfg, mode, args, shape)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters().items()}
+        host = comm.host_bytes
+        named = dict(state.net.named_parameters())
+        opt = state.optimizer.state
+        stats = {"launches": launches, "host_bytes": host, "wall_s": wall,
+                 "param_bytes": sum(p.numel() * p.element_size() for p in named.values()),
+                 "moment_bytes": sum(t.numel() * t.element_size() for st in opt.values()
+                                     for key, t in st.items() if key != "step"),
+                 "peak_bytes": torch.cuda.max_memory_allocated(),
+                 "replicated_digest": _digest(named[n] for n in _replicated_names(
+                     mode, list(named))),
+                 "blocks": sorted({int(state.layout.whole_name(n).split(".")[1])
+                                   for n in named if n.startswith("blocks.")})}
+        ranks = [None] * dist.get_world_size()
+        dist.all_gather_object(ranks, stats)
+        del state, named, opt
+        torch.cuda.empty_cache()
+        with torch.device("meta"):
+            whole = DA3Net(cfg)
+        res = {"ranks": ranks, "losses": losses, "lines": lines, "shape": shape,
+               "whole_param_bytes": sum(p.numel() * 4 for p in whole.parameters()),
+               "grads": _grad_check(cfg, mode, args, shape)}
+        if mode == "sp":
+            res["ring"] = _ring_backward_check()
+        results[mode] = res
+        torch.cuda.empty_cache()
+    return results if dist.get_rank() == 0 else None
+
+
+def _emit_train_mesh(path_launches: dict, mode: str, backend: str, res: dict,
+                     spawn_s: float) -> None:
+    cfg, world = _train_cfg(mode), len(res["ranks"])
+    phase = f"train_{mode}"
+    want = _train_mesh_launches(cfg, mode, world)
+    for r, st in enumerate(res["ranks"]):
+        path_launches[f"{phase}.rank{r}"] = st["launches"]
+    lines = [json.loads(ln) for ln in res["lines"] if ln.startswith("{")]
+    steps_per_s = [ln["steps_per_s"] for ln in lines if "steps_per_s" in ln]
+    digests = {st["replicated_digest"] for st in res["ranks"]}
+    g = res["grads"]
+    emit(phase, preset="giant (cut)" if mode == "giant_tp" else "small", backend=backend,
+         ranks=world, mesh=res["shape"], args=TRAIN_MESH_COMMON + TRAIN_MESH_ARGS[mode],
+         losses=res["losses"], cli_lines=lines,
+         steps_per_s=steps_per_s[-1] if steps_per_s else None,
+         steps_per_s_note=(f"{world} ranks time-sharing one card: function, not scaling"
+                           if world > 1 else "one rank"),
+         launches_per_rank=[{k: v for k, v in st["launches"].items() if v}
+                            for st in res["ranks"]],
+         expected_launches_per_rank={k: v for k, v in want.items() if v},
+         host_bytes_per_rank=[st["host_bytes"] for st in res["ranks"]],
+         param_bytes_per_rank=[st["param_bytes"] for st in res["ranks"]],
+         moment_bytes_per_rank=[st["moment_bytes"] for st in res["ranks"]],
+         whole_param_bytes=res["whole_param_bytes"],
+         peak_bytes_per_rank=[st["peak_bytes"] for st in res["ranks"]],
+         wall_s_per_rank=[st["wall_s"] for st in res["ranks"]],
+         blocks_per_rank=[st["blocks"] for st in res["ranks"]],
+         replicated_bit_equal=len(digests) == 1, grads=g, spawn_s=spawn_s,
+         ring_backward=res.get("ring"))
+    if len(res["losses"]) != _train_args(mode).steps or not all(np.isfinite(res["losses"])):
+        fail(f"{phase}: losses {res['losses']}")
+    for r, st in enumerate(res["ranks"]):
+        if st["launches"] != want:
+            fail(f"{phase}: rank {r} launches {st['launches']} != {want}")
+    if len(digests) != 1:
+        fail(f"{phase}: replicated parameters differ across the ranks")
+    if g["zero_in_single_not_here"] or not (g["rel_l2"] <= g["tol"]
+                                            and g["blocks_max_rel"] <= g["tol"]):
+        fail(f"{phase}: gradients against the single-process step: {g}")
+    if mode == "nccl" and g["vs_one_device_max_rel"] > 2 * g["one_device_repeat_max_rel"]:
+        fail(f"{phase}: further from the one-device step than it is from itself: {g}")
+    if mode == "pp" and [st["blocks"] for st in res["ranks"]] != [
+            list(range(s * cfg.depth // world, (s + 1) * cfg.depth // world))
+            for s in range(world)]:
+        fail(f"{phase}: stage blocks {[st['blocks'] for st in res['ranks']]}")
+    for rows in res.get("ring") or []:
+        for row in rows:
+            for name in ("dq", "dk", "dv"):
+                e = row[name]
+                if not e["max_abs_err"] <= e["tol"] < e["hopless_max_abs_err"]:
+                    fail(f"{phase}: the ring's backward against its plain version {row}")
+
+
+def phase_train_mesh(path_launches: dict) -> None:
+    """39-44. train_tp, train_sp, train_pp, train_giant_tp on two gloo ranks
+    sharing the card (one spawn), train_tp4 on four, train_nccl on one NCCL
+    rank; each held to the single-process step."""
+    from da3slam_tpu_torch.ops.flash_attention import build_kernel
+    from da3slam_tpu_torch.parallel import run_ranks
+
+    build_kernel()  # in this process, before the ranks look for it
+    for world, backend, modes in ((2, "gloo", ["tp", "sp", "pp", "giant_tp"]),
+                                  (4, "gloo", ["tp4"]), (1, "nccl", ["nccl"])):
+        t0 = time.perf_counter()
+        res = run_ranks(train_rank, world, backend, "cuda", TRAIN_MESH_TIMEOUT_S, modes)
+        spawn_s = time.perf_counter() - t0
+        for mode in modes:
+            _emit_train_mesh(path_launches, mode, backend, res[mode], spawn_s)
 
 
 SOURCES = {
@@ -3617,6 +4072,7 @@ def main() -> None:
     small_ref = phase_mesh(path_launches)
     phase_mesh_nccl(path_launches, small_ref)
     phase_mesh_pp_giant(path_launches)
+    phase_train_mesh(path_launches)
     kernels = []
     for name, (source, replaces, headline) in SOURCES.items():
         by_path = {path: counts[name] for path, counts in path_launches.items()}

@@ -99,6 +99,8 @@ class Block(nn.Module):
         self.norm2 = nn.LayerNorm(D, eps=LN_EPS)
         self.mlp = (SwiGLU if cfg.mlp_type == "swiglu" else Mlp)(D, cfg.mlp_hidden)
         self.ls2 = LayerScale(D)
+        # tensor parallelism: set on a tp shard (parallel/sharding.py:shard_tp)
+        self.tp = None
 
 
 class PatchEmbed(nn.Module):
@@ -164,25 +166,35 @@ def layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+def _row_linear(lin: nn.Linear, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """A linear whose input features may be split over a tp group: the
+    partial products are summed over the group, then the bias is added once."""
+    if tp is None:
+        return linear(lin, x)
+    return tp.reduce(F.linear(x, lin.weight.to(x.dtype))) + lin.bias.to(x.dtype)
+
+
 def _attn_core(attn: Attention, qkv: torch.Tensor, num_heads: int,
-               attn_fn=multi_head_attention) -> torch.Tensor:
+               attn_fn=multi_head_attention, tp=None) -> torch.Tensor:
     """Split → attention (``attn_fn`` on ``[B, S, H, Dh]``) → out-projection,
     shared by the float and the W8A8 QKV producers.  qkv: ``[B, S, 3D]`` →
-    ``[B, S, D]``."""
+    ``[B, S, D]``.  On a tp shard qkv holds this rank's heads of q, k and v
+    (``[B, S, 3D/tp]``, ``num_heads`` its own count) and the out-projection is
+    row-parallel."""
     B, S, D3 = qkv.shape
     D = D3 // 3
     hd = D // num_heads
     q, k, v = qkv.split(D, dim=-1)
     q, k, v = (t.reshape(B, S, num_heads, hd).contiguous() for t in (q, k, v))
     out = attn_fn(q, k, v).reshape(B, S, D)
-    return linear(attn.proj, out)
+    return _row_linear(attn.proj, out, tp)
 
 
-def _mlp(mlp: Mlp | SwiGLU, x: torch.Tensor) -> torch.Tensor:
+def _mlp(mlp: Mlp | SwiGLU, x: torch.Tensor, tp=None) -> torch.Tensor:
     if isinstance(mlp, SwiGLU):
         gate, value = linear(mlp.w12, x).chunk(2, dim=-1)
-        return linear(mlp.w3, F.silu(gate) * value)
-    return linear(mlp.fc2, F.gelu(linear(mlp.fc1, x), approximate="tanh"))
+        return _row_linear(mlp.w3, F.silu(gate) * value, tp)
+    return _row_linear(mlp.fc2, F.gelu(linear(mlp.fc1, x), approximate="tanh"), tp)
 
 
 def _mlp_w8a8(mlp: Mlp | SwiGLU, x8: torch.Tensor, xs: torch.Tensor, dtype) -> torch.Tensor:
@@ -215,10 +227,16 @@ def _block(blk: Block, x: torch.Tensor, num_heads: int, cross_view: bool,
         m8, ms = layer_norm_quant(blk.norm2.weight, blk.norm2.bias, h, blk.norm2.eps)
         m = _mlp_w8a8(blk.mlp, m8, ms, x.dtype)
     else:
-        a = _attn_core(blk.attn, linear(blk.attn.qkv, layer_norm(blk.norm1, h)), num_heads,
-                       attn_fn)
+        # on a tp shard (Megatron): the column-parallel qkv / first MLP linear
+        # takes its input through tp.enter (the gradient summed over the
+        # group), the row-parallel projections sum over it (_row_linear)
+        tp = blk.tp
+        enter = (lambda t: t) if tp is None else tp.enter
+        heads = num_heads if tp is None else num_heads // tp.size
+        a = _attn_core(blk.attn, linear(blk.attn.qkv, enter(layer_norm(blk.norm1, h))), heads,
+                       attn_fn, tp)
         h = h + a * blk.ls1.gamma.to(x.dtype)
-        m = _mlp(blk.mlp, layer_norm(blk.norm2, h))
+        m = _mlp(blk.mlp, enter(layer_norm(blk.norm2, h)), tp)
     h = h + m * blk.ls2.gamma.to(x.dtype)
     return h.reshape(N, S, D)
 

@@ -8,12 +8,15 @@ errors.  ``run_ranks`` starts such a program: it spawns the ranks, meets
 them through a ``FileStore`` in a temporary directory (no network port), and
 returns rank 0's result or re-raises the first failing rank's traceback.  It
 is what XLA's ``--xla_force_host_platform_device_count`` gives the JAX tests:
-several devices on one machine.
+several devices on one machine.  ``one_rank_group`` runs such a program in
+the calling process as a group of one.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
+import math
 import multiprocessing
 import os
 import queue
@@ -61,20 +64,37 @@ def axis_size(mesh: DeviceMesh, axis: str) -> int:
     return mesh.size(mesh.mesh_dim_names.index(axis))
 
 
+def _init_group(rank, world_size, backend, device, timeout_s, store_path, card=None) -> None:
+    kw = {}
+    if device == "cuda":
+        card = torch.device("cuda", rank % torch.cuda.device_count()) if card is None else card
+        torch.cuda.set_device(card)
+        if backend == "nccl":
+            kw["device_id"] = card  # NCCL binds its communicator to the card
+    dist.init_process_group(backend, store=dist.FileStore(store_path, world_size),
+                            rank=rank, world_size=world_size,
+                            timeout=datetime.timedelta(seconds=timeout_s), **kw)
+
+
+@contextlib.contextmanager
+def one_rank_group(backend: str, device: str, timeout_s: float):
+    """The default process group as a group of this process alone (on
+    ``device="cuda"``, the current card), for the program a mesh of one runs."""
+    card = torch.device("cuda", torch.cuda.current_device()) if device == "cuda" else None
+    with tempfile.TemporaryDirectory(prefix="ranks_") as tmp:
+        _init_group(0, 1, backend, device, timeout_s, os.path.join(tmp, "store"), card)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
 def _rank_main(rank, world_size, backend, device, timeout_s, store_path, results, fn, args):
     """One spawned rank: join the group, run ``fn(*args)``, report, leave.  A
     failure is reported with its traceback before it ends the process."""
     torch.set_num_threads(1)
     try:
-        kw = {}
-        if device == "cuda":
-            card = torch.device("cuda", rank % torch.cuda.device_count())
-            torch.cuda.set_device(card)
-            if backend == "nccl":
-                kw["device_id"] = card  # NCCL binds its communicator to the card
-        dist.init_process_group(backend, store=dist.FileStore(store_path, world_size),
-                                rank=rank, world_size=world_size,
-                                timeout=datetime.timedelta(seconds=timeout_s), **kw)
+        _init_group(rank, world_size, backend, device, timeout_s, store_path)
     except BaseException:
         results.put((rank, False, traceback.format_exc()))
         raise
@@ -103,7 +123,8 @@ def _failures(results, failed: dict, world_size: int, grace_s: float = 2.0) -> s
     return "\n".join(f"rank {r} of {world_size} failed:\n{failed[r]}" for r in sorted(failed))
 
 
-def run_ranks(fn, world_size: int, backend: str, device: str, timeout_s: float, *args):
+def run_ranks(fn, world_size: int, backend: str, device: str, timeout_s: float, *args,
+              whole_run_deadline: bool = True):
     """Run ``fn(*args)`` on ``world_size`` spawned ranks of one process group
     and return rank 0's result.
 
@@ -111,12 +132,13 @@ def run_ranks(fn, world_size: int, backend: str, device: str, timeout_s: float, 
     function) and its arguments and rank 0's result picklable.  ``backend``
     (``"gloo"`` or ``"nccl"``) is passed as given.  On ``device="cuda"`` rank
     r takes card ``r % device_count``.  The group's collectives time out after
-    ``timeout_s``; so does the whole run: then, or as soon as one rank fails,
+    ``timeout_s``; so does the whole run unless ``whole_run_deadline`` is
+    False (a training run of any length): then, or as soon as one rank fails,
     every rank is killed and the failure (with the rank's traceback) is
     raised here.
     """
     ctx = multiprocessing.get_context("spawn")
-    deadline = time.monotonic() + timeout_s
+    deadline = time.monotonic() + timeout_s if whole_run_deadline else math.inf
     with tempfile.TemporaryDirectory(prefix="ranks_") as tmp:
         results = ctx.Queue()
         procs = [ctx.Process(target=_rank_main, daemon=True,
@@ -148,7 +170,7 @@ def run_ranks(fn, world_size: int, backend: str, device: str, timeout_s: float, 
                     raise RuntimeError(_failures(results, {rank: payload}, world_size))
                 done[rank] = payload
             for p in procs:
-                p.join(max(deadline - time.monotonic(), 0.1))
+                p.join(min(max(deadline - time.monotonic(), 0.1), timeout_s))
             return done[0]
         finally:
             for p in procs:

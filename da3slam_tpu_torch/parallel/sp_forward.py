@@ -7,6 +7,10 @@ the cross-view attention, the quadratic term, runs as ring attention over
 the axis (``parallel/ring_attention.py``).  Depth, confidence, rays and
 camera tokens are then all-gathered, and the small camera head runs on every
 rank over all views, so the reference view's normalisation sees them all.
+
+:func:`local_forward` is the per-rank part, shared with the sp train step
+(``parallel/train.py:make_sp_train_step``), which keeps its graph; the
+inference forward here runs it without one.
 """
 
 from __future__ import annotations
@@ -19,6 +23,17 @@ from da3slam_tpu_torch.models.da3 import DA3Net
 from da3slam_tpu_torch.parallel import comm
 from da3slam_tpu_torch.parallel.mesh import DeviceMesh, axis_size
 from da3slam_tpu_torch.parallel.ring_attention import make_ring_cross_view_attention
+
+
+def local_forward(net: DA3Net, local: torch.Tensor, cfg: ModelConfig, dtype: torch.dtype,
+                  ring) -> tuple[torch.Tensor, ...]:
+    """One rank's views ``[n, H, W, 3]`` through the encoder (cross-view
+    blocks on ``ring``) and the DPT head: ``(depth, conf, rays, camera
+    tokens [n, D])``."""
+    H, W = local.shape[1:3]
+    taps, final, grid = vit.encode(net, local, cfg, dtype, cross_attn_impl=ring)
+    depth, conf, rays = dpt.apply_dpt(net.depth_head, taps, grid, (H, W), cfg)
+    return depth, conf, rays, final[:, 0, :]
 
 
 def make_sharded_forward(
@@ -45,10 +60,8 @@ def make_sharded_forward(
         if N % n:
             raise ValueError(f"{N} views do not divide over the {axis!r} axis of {n}")
         local = images[r * (N // n):(r + 1) * (N // n)]
-        taps, final, grid = vit.encode(net, local, cfg, dtype, cross_attn_impl=ring)
-        depth, conf, rays = dpt.apply_dpt(net.depth_head, taps, grid, (H, W), cfg)
-        depth, conf, rays, cam_tokens = (comm.all_gather(t, group)
-                                         for t in (depth, conf, rays, final[:, 0, :]))
+        depth, conf, rays, cam_tokens = (comm.all_gather(t, group) for t in
+                                         local_forward(net, local, cfg, dtype, ring))
         extrinsics, intrinsics = camera.apply_camera_head(net.camera_head, cam_tokens, (H, W),
                                                           ref_idx)
         return {"depth": depth, "conf": conf, "extrinsics": extrinsics,

@@ -7,7 +7,10 @@ with CUDA tensors, and every rank checks what it got.  One JSON line a call:
 ``takes CUDA tensors``, or the failure's last line.  ``parallel/comm.py``
 stages the calls that fail through pinned host memory; the point-to-point
 ones failed on an H100 with torch 2.11 ("writev ... Bad address": gloo read
-the CUDA pointer as host memory).
+the CUDA pointer as host memory).  The train steps use these calls only:
+``all_reduce`` (the Megatron operators, the gradient sums), ``broadcast``
+(replicated gradients, pp taps), ``all_gather`` (sp camera tokens, tp
+shards) and the staged point-to-point hops; no ``reduce_scatter``.
 """
 
 from __future__ import annotations

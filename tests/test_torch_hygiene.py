@@ -43,6 +43,9 @@ NESTED_SLICE = ("cli.evaluate", "cli.main_conf", "cli.parity", "inout.datasets",
 # attention, the sp forward, the pp encoder and the pipelines over them
 PARALLEL_SLICE = ("parallel.comm", "parallel.mesh", "parallel.pp_forward",
                   "parallel.ring_attention", "parallel.sp_forward", "slam.pipeline")
+# multi-device training: the sharding rules, the train steps, their
+# checkpoints and the CLI
+TRAIN_SLICE = ("cli.train", "parallel.checkpoint", "parallel.sharding", "parallel.train")
 
 
 def test_no_module_imports_jax_or_the_jax_package():
@@ -52,13 +55,14 @@ def test_no_module_imports_jax_or_the_jax_package():
     assert out[1] == "[]"
     walked = out[2].split(",")
     assert all(f"da3slam_tpu_torch.{m}" in walked
-               for m in LOOP_SLICE + MESH_SLICE + GS_SLICE + NESTED_SLICE + PARALLEL_SLICE)
+               for m in LOOP_SLICE + MESH_SLICE + GS_SLICE + NESTED_SLICE + PARALLEL_SLICE
+               + TRAIN_SLICE)
 
 
-@pytest.mark.parametrize("module", GS_SLICE + NESTED_SLICE + PARALLEL_SLICE)
+@pytest.mark.parametrize("module", GS_SLICE + NESTED_SLICE + PARALLEL_SLICE + TRAIN_SLICE)
 def test_3dgs_slice_imports_alone(module):
     """Each module of the 3DGS slice, of the nested-tier slice and of the
-    multi-device slice, imported by itself in a fresh process, loads neither JAX, nor the JAX package, nor a
+    multi-device slices, imported by itself in a fresh process, loads neither JAX, nor the JAX package, nor a
     shared library of it."""
     code = (f"import sys, da3slam_tpu_torch.{module}\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'da3slam_tpu') "

@@ -379,10 +379,55 @@ class TestTrainCLI:
         final = json_lines(capsys.readouterr().out)[-1]
         assert final["final_step"] == 3 and np.isfinite(final["final_loss"])
 
-    @pytest.mark.parametrize("extra", [["--mode", "sp"], ["--mode", "pp", "--stages", "2"],
-                                       ["--devices", "2"], ["--tp", "2"], ["--stages", "2"]])
-    def test_multi_device_modes_are_refused(self, extra):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, modules queue item 14"):
+    @pytest.mark.parametrize("extra,mesh", [
+        (["--mode", "sp", "--devices", "2"], {"sp": 2}),
+        (["--mode", "pp", "--stages", "2"], {"pp": 2}),
+        (["--devices", "2"], {"dp": 2, "tp": 1}),
+        (["--devices", "2", "--tp", "2"], {"dp": 1, "tp": 2}),
+        (["--devices", "4"], {"dp": 2, "tp": 2}),  # tp defaults to 2 at 4 devices
+    ])
+    def test_multi_device_modes_run(self, extra, mesh, capfd):
+        """Each mode on gloo ranks on the CPU (spawned; rank 0 prints): the
+        header's mesh holds the mesh's axis sizes, the loss is finite."""
+        cli.main(["--preset", "tiny", "--steps", "2", "--batch", "2", "--views", "2",
+                  "--hw", "28", "28", "--log_every", "1", "--device", "cpu", *extra])
+        lines = json_lines(capfd.readouterr().out)
+        assert lines[0]["mesh"] == mesh
+        assert [ln["step"] for ln in lines if "step" in ln] == [1, 2]
+        assert lines[-1]["final_step"] == 2 and np.isfinite(lines[-1]["final_loss"])
+
+    def test_sp_on_one_device_runs_in_process(self, capfd):
+        """A mesh of one: a process group of this process alone, no spawn."""
+        cli.main(["--preset", "tiny", "--mode", "sp", "--steps", "1", "--views", "2",
+                  "--hw", "28", "28", "--log_every", "1", "--device", "cpu"])
+        lines = json_lines(capfd.readouterr().out)
+        assert lines[0]["mesh"] == {"sp": 1} and np.isfinite(lines[-1]["final_loss"])
+
+    def test_pp_checkpoint_and_resume(self, tmp_path, capfd):
+        """Stages gathered into one file by rank 0, restored on every rank."""
+        args = ["--preset", "tiny", "--mode", "pp", "--stages", "2", "--batch", "2",
+                "--views", "2", "--hw", "28", "28", "--device", "cpu",
+                "--ckpt_dir", str(tmp_path), "--log_every", "1"]
+        cli.main([*args, "--steps", "2"])
+        assert (tmp_path / "latest").exists()
+        capfd.readouterr()
+        cli.main([*args, "--steps", "3", "--resume"])
+        out = capfd.readouterr().out
+        assert "resumed step 2" in out
+        assert json_lines(out)[-1]["final_step"] == 3
+
+    @pytest.mark.parametrize("extra,error,match", [
+        (["--mode", "sp", "--devices", "2", "--views", "3"], SystemExit,
+         "--views 3 must divide by the sp mesh size 2"),
+        (["--devices", "2", "--batch", "3"], SystemExit,
+         "--batch 3 must divide by the dp mesh axis 2"),
+        (["--mode", "pp", "--stages", "3"], ValueError, "n_stages=3 must divide depth=4"),
+        (["--devices", "3", "--tp", "2"], ValueError, "tp=2 must divide device count 3"),
+        (["--devices", "4", "--tp", "4"], ValueError, "tp=4 must divide num_heads 2"),
+    ])
+    def test_jax_cli_errors(self, extra, error, match):
+        """The JAX CLI's errors, raised before any rank is spawned."""
+        with pytest.raises(error, match=match):
             cli.main(["--preset", "tiny", "--steps", "1", "--device", "cpu", *extra])
 
     def test_cuda_device_needs_cuda(self, monkeypatch):
