@@ -166,15 +166,43 @@ final line:
     ring's backward (the dq and dk/dv kernels a hop) against its plain
     version at the hop shape in f32 and bf16, and NCCL the one-device step
     bit for bit (as far as that step repeats itself)
+45. main_slam_viewer: ``SLAMSolver(viewer="auto")`` (device-resident) and
+    ``cli/main_slam`` without ``--headless``, each through a recording stub
+    ``viser`` module this script defines (the card has none): 31 frames
+    reach the viewer, each cloud and frustum equal to a host recomputation
+    from the fetched depth, intrinsics and global extrinsics, the frusta at
+    the trajectory's centres, 36 bound-forward launches a run, at most one
+    host wait a chunk in the viewer's update; frames/s with the viewer beside
+    the same solver headless, in turns; the CLI's stay-alive loop ended
+    through its ``time.sleep``
+46. main_align_viewer: ``cli/main_align --method irls`` at SMALL without
+    ``--headless`` through the stub: the first and last frame of each chunk
+    reach the viewer, each cloud equal to its host recomputation
+47. main_video: ``cli/main_video --crop 0.9 --brightness`` with
+    ``video_to_frames`` replaced by a writer of the 31 frames, ``--mode
+    streaming --traj_formats tum`` and ``--mode slam --headless``: the output
+    files, finite poses, 12 launches a chunk
+48. batch_viewer: ``show_prediction(mask_sky=True)`` over a SMALL prediction
+    through the stub: one batch, clouds against the host, the sky mask's
+    confidences
+49. profile_trace: a SMALL chunk under ``utils/profiling.py:profile_trace``;
+    the Chrome trace names the bf16 bound forward kernel 12 times
+50. main_conf_figures: ``cli/main_conf`` without ``--stats_only``: the PNGs
+    where matplotlib imports, else an error naming matplotlib before the
+    model runs, and nothing written (the case that ran is printed)
+51. native: the port's C++ point-cloud library built (timed) and loaded;
+    ``write_ply`` / ``read_ply`` native against numpy at 11,430,720 points
+    (bytes and arrays equal, seconds), ``voxel_downsample`` and the 3DGS
+    writer against their numpy paths
 
 The forward phase (3) also holds the bound forward at that joint length, at
 main_mesh's chunk-8 cross length (S = 10408, also sp's ring hop), at the
 nested tier's giant and metric shapes and at the multi-device paths' (chunk
 16 at SMALL and giant width, sp's 8 views).
 Each driven path (7 twice, 8, 9, 13, 14, 15, 16, 18, 20, 21, 22, 23, 24 twice,
-25, 26 twice, 27, 29, 32, and 34-44 on each rank and 34-38 in their
-single-process runs) sets every launch count to 0 just before it and reads
-them just after.  The ``kernels`` line gives each kernel's
+25, 26 twice, 27, 29, 32, 34-44 on each rank and 34-38 in their
+single-process runs, 45 twice, 46, 47 twice, 48, 49 and 50) sets every launch
+count to 0 just before it and reads them just after.  The ``kernels`` line gives each kernel's
 launches, error, time, plain version's time, roofline bound (from the shapes
 of this run, against the H100 SXM data sheet's peaks) and, where one PyTorch
 call computes the same function, that call's time (timed here, used nowhere
@@ -4005,6 +4033,668 @@ def phase_train_mesh(path_launches: dict) -> None:
             _emit_train_mesh(path_launches, mode, backend, res[mode], spawn_s)
 
 
+# ---------------------------------------------------------------------------
+# The last modules (phases 45-51): the viewer on main_slam and main_align,
+# main_video, the one-shot viewer, the profiler trace, the confidence
+# figures and the native point-cloud library
+# ---------------------------------------------------------------------------
+
+# a viewer point against its host recomputation in f64 (from the fetched
+# depth, intrinsics and global extrinsics): f32 backprojection, rotation and
+# translation round a few times, each within 2^-24 of the largest coordinate;
+# 1e-5 of it is ~170 roundings
+VIEWER_POINT_REL_TOL = 1e-5
+# host waits the viewer may add a chunk: its one device->host transfer
+VIEWER_WAITS_PER_CHUNK = 1
+# SMALL main_slam over the 31 frames: chunks of 15, overlap 1 (3 chunks)
+VIEWER_CHUNKS = 3
+# main_video's frames: the 31 generated ones, written as the decoder would
+VIDEO_STREAM_CHUNK, VIDEO_STREAM_OVERLAP = 16, 4  # cli/streaming's defaults
+# LARGE main_align's fused cloud at 15-frame chunks: the native PLY cell
+NATIVE_POINTS = 11_430_720
+NATIVE_VOXEL_POINTS, NATIVE_VOXEL = 1_000_000, 0.05
+# voxel centroids against the numpy reference of the C++ arithmetic: f64
+# sums of the same points in the same order, one f32 rounding of the mean
+NATIVE_VOXEL_TOL = 1e-6
+# the C++ 3DGS pass against the numpy path (tests/test_native.py's bound:
+# the compiler contracts multiply-adds there)
+NATIVE_GS_TOL = 5e-6
+PROFILE_KERNEL = "flash_fwd_wgmma_kernel"
+
+
+class _Handle:
+    """A recording stand-in for a viser scene or GUI handle."""
+
+    def __init__(self, **kw):
+        self.__dict__.update(kw)
+        self.removed = False
+        self.callbacks = []
+
+    def remove(self):
+        self.removed = True
+
+    def on_update(self, fn):
+        self.callbacks.append(fn)
+        return fn
+
+    on_click = on_update
+
+
+class _StubGui:
+    def __init__(self):
+        self.handles = {}
+
+    def add_slider(self, name, min, max, step, initial_value):
+        self.handles[name] = _Handle(value=initial_value, options=None)
+        return self.handles[name]
+
+    def add_dropdown(self, name, options, initial_value):
+        self.handles[name] = _Handle(value=initial_value, options=list(options))
+        return self.handles[name]
+
+
+class _StubScene:
+    def __init__(self):
+        self.clouds, self.frusta, self.meshes = [], [], []
+
+    def add_point_cloud(self, name, points, colors, point_size):
+        self.clouds.append(_Handle(name=name, points=points, colors=colors,
+                                   point_size=point_size))
+        return self.clouds[-1]
+
+    def add_camera_frustum(self, name, fov, aspect, scale, wxyz, position, image):
+        self.frusta.append(_Handle(name=name, fov=fov, aspect=aspect, wxyz=wxyz,
+                                   position=position, image=image))
+        return self.frusta[-1]
+
+    def add_mesh(self, name, vertices, faces, colors):
+        self.meshes.append(_Handle(name=name, vertices=vertices, faces=faces, colors=colors))
+        return self.meshes[-1]
+
+    def add_mesh_simple(self, name, vertices, faces, color):
+        self.meshes.append(_Handle(name=name, vertices=vertices, faces=faces, color=color))
+        return self.meshes[-1]
+
+
+@contextlib.contextmanager
+def stub_viser():
+    """A recording ``viser`` module in ``sys.modules`` (the card has no
+    viser): ``ViserServer`` records every scene call; the servers made are
+    yielded in a list.  Removed on exit."""
+    import types
+
+    servers = []
+
+    class ViserServer:
+        def __init__(self, host, port):
+            self.host, self.port = host, port
+            self.gui, self.scene = _StubGui(), _StubScene()
+            servers.append(self)
+
+        def get_clients(self):
+            return {}
+
+    saved = sys.modules.get("viser")
+    stub = types.ModuleType("viser")
+    stub.ViserServer = ViserServer
+    sys.modules["viser"] = stub
+    try:
+        yield servers
+    finally:
+        if saved is None:
+            sys.modules.pop("viser", None)
+        else:
+            sys.modules["viser"] = saved
+
+
+def _host(a) -> np.ndarray:
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+@contextlib.contextmanager
+def recorded_viewer_inputs():
+    """Every ``SLAMViewer.add_frames`` call's inputs (references; fetched
+    after the run) with the index of its first frame, and every
+    ``SLAMSolver.update_viewer`` call's host waits (and the thread and Python
+    line each was reported at)."""
+    from da3slam_tpu_torch.slam.solver import SLAMSolver
+    from da3slam_tpu_torch.viz.viewer import SLAMViewer
+
+    calls, waits = [], []
+    where: dict[str, int] = {}
+
+    def make_add(orig):
+        def add_frames(self, images, depth, conf, extrinsics, intrinsics):
+            calls.append((self, self._frame_count, (images, depth, conf, extrinsics, intrinsics)))
+            return orig(self, images, depth, conf, extrinsics, intrinsics)
+        return add_frames
+
+    def make_update(orig):
+        def update_viewer(self, chunk_prediction, start=0):
+            import threading
+
+            reported = []
+
+            def show(message, category, filename, lineno, file=None, line=None):
+                if "synchroniz" in str(message):
+                    reported.append(f"{threading.current_thread().name} "
+                                  f"{Path(filename).name}:{lineno}")
+
+            with warnings.catch_warnings():
+                warnings.simplefilter("always")
+                warnings.showwarning = show
+                torch.cuda.set_sync_debug_mode("warn")
+                reported.clear()  # switching the mode on may report a wait of its own
+                try:
+                    orig(self, chunk_prediction, start)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            waits.append(len(reported))
+            for st in reported:
+                where[st] = where.get(st, 0) + 1
+        return update_viewer
+
+    with patched(SLAMViewer, "add_frames", make_add), \
+            patched(SLAMSolver, "update_viewer", make_update):
+        yield calls, waits, where
+
+
+def _host_cloud(depth, K, E, stride, min_depth, max_depth):
+    """The viewer's cloud of one frame recomputed on the host in f64, from
+    the same f32 depth (validity tested in f32, as on the card)."""
+    d = np.asarray(depth, np.float32)
+    H, W = d.shape
+    v, u = np.mgrid[0:H, 0:W].astype(np.float64)
+    K = np.asarray(K, np.float64)
+    z = d.astype(np.float64)
+    cam = np.stack([(u - K[0, 2]) / K[0, 0] * z, (v - K[1, 2]) / K[1, 1] * z, z], -1)
+    E = np.asarray(E, np.float32).astype(np.float64)
+    world = (cam - E[:3, 3]) @ E[:3, :3]
+    pts = world[::stride, ::stride].reshape(-1, 3)
+    ds = d[::stride, ::stride].reshape(-1)
+    valid = (np.isfinite(pts).all(-1) & (ds > np.float32(min_depth))
+             & (ds < np.float32(max_depth)))
+    return pts[valid], valid
+
+
+def check_viewer_clouds(calls) -> dict:
+    """Each frame the viewers took against the host recomputation: the same
+    points kept, within VIEWER_POINT_REL_TOL of the frame's largest
+    coordinate, the same colours; each frustum at the frame's camera centre."""
+    worst, n_frames, n_points = 0.0, 0, 0
+    for viewer, first, (images, depth, conf, ext, intr) in calls:
+        images, depth, ext, intr = (_host(a) for a in (images, depth, ext, intr))
+        for i in range(len(depth)):
+            idx = first + i
+            pts, valid = _host_cloud(depth[i], intr[i], ext[i], viewer.point_stride,
+                                     viewer.min_depth, viewer.max_depth)
+            got = viewer.all_points[idx]
+            s = viewer.point_stride
+            cols = images[i][::s, ::s].reshape(-1, 3)[valid]
+            if got.shape != pts.shape or not np.array_equal(viewer.all_colors[idx], cols):
+                fail(f"viewer frame {idx}: {got.shape[0]} points, the host keeps {pts.shape[0]} "
+                     "(or the colours differ)")
+            scale = max(1.0, float(np.abs(pts).max(initial=0.0)))
+            err = float(np.abs(got - pts).max(initial=0.0)) / scale
+            E = ext[i].astype(np.float64)
+            center = -E[:3, :3].T @ E[:3, 3]
+            pos = np.asarray(viewer.cam_poses[idx][1], np.float64)
+            err = max(err, float(np.abs(pos - center).max()) / max(1.0, np.abs(center).max()))
+            worst, n_frames, n_points = max(worst, err), n_frames + 1, n_points + len(pts)
+    if not worst <= VIEWER_POINT_REL_TOL:
+        fail(f"viewer: a cloud or frustum {worst} (relative) from the host recomputation "
+             f"(bound {VIEWER_POINT_REL_TOL})")
+    return {"frames": n_frames, "points": n_points, "max_rel_err": worst,
+            "tol": VIEWER_POINT_REL_TOL}
+
+
+def _viewer_solver_run(model, config: dict, viewer) -> tuple:
+    """One SLAMSolver run over the 31 frames: (solver, run seconds)."""
+    from da3slam_tpu_torch.slam.solver import SLAMSolver
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        solver = SLAMSolver(str(frames_dir()), config, model=model, viewer=viewer,
+                            device=torch.device("cuda"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver.run()
+        torch.cuda.synchronize()
+    return solver, time.perf_counter() - t0
+
+
+def phase_main_slam_viewer(path_launches: dict) -> None:
+    """45. main_slam_viewer: ``SLAMSolver(viewer="auto")`` (device-resident,
+    ICP) and then ``cli/main_slam`` without ``--headless`` (its default
+    config: every chunk fetched), each through the recording stub viser:
+    31 frames reach the viewer, each cloud and frustum equal to the host
+    recomputation from the fetched depth, intrinsics and global extrinsics,
+    the frusta at ``solver.trajectory()``'s centres, 36 bound-forward
+    launches a run, at most VIEWER_WAITS_PER_CHUNK host wait a chunk in
+    ``update_viewer``; frames/s with the viewer beside the same solver
+    headless, in turns (not counted, not recorded).  The CLI stays alive
+    after its run: the phase ends that loop through the module's
+    ``time.sleep``."""
+    import types
+
+    from da3slam_tpu_torch.cli import main_slam
+    from da3slam_tpu_torch.models.da3 import DepthAnything3
+
+    resident = {"Weights": {"DA3": "small"},
+                "Model": {**main_slam.DEFAULT_CONFIG["Model"], "device_resident": True}}
+    model = DepthAnything3.from_pretrained("small", device=torch.device("cuda"))
+    with stub_viser() as servers:
+        with recorded_viewer_inputs() as (calls, waits, where), \
+                counted(path_launches, "main_slam_viewer"):
+            solver, _ = _viewer_solver_run(model, resident, "auto")
+            solver_waits, solver_where = list(waits), dict(where)
+        if solver.viewer is None or len(servers) != 1:
+            fail("main_slam_viewer: the solver did not open the stub viewer")
+        clouds = check_viewer_clouds(calls)
+        c2w, _ = solver.trajectory()
+        centres = np.stack([p for _, p in solver.viewer.cam_poses]).astype(np.float64)
+        traj_err = float(np.abs(centres - c2w[:, :3, 3]).max())
+        rates = []
+        for tag in ("headless", "viewer", "viewer", "headless"):
+            _, run_s = _viewer_solver_run(model, resident, None if tag == "headless" else "auto")
+            rates.append((tag, N_FRAMES / run_s))
+        del model
+        out_dir = WORK / "out_viewer"
+
+        def interrupt(_s):
+            raise KeyboardInterrupt
+
+        saved_time = main_slam.time
+        main_slam.time = types.SimpleNamespace(sleep=interrupt)
+        try:
+            with recorded_viewer_inputs() as (calls, waits, where), \
+                    counted(path_launches, "main_slam_viewer_cli"), \
+                    contextlib.redirect_stdout(io.StringIO()) as out:
+                cli_solver = main_slam.main(["--image_dir", str(frames_dir()),
+                                             "--output_dir", str(out_dir)])
+                cli_waits, cli_where = list(waits), dict(where)
+        finally:
+            main_slam.time = saved_time
+        cli_clouds = check_viewer_clouds(calls)
+    poses = np.loadtxt(out_dir / "camera_poses.txt", ndmin=2)
+    expected = expected_launches(flash_attn_bound_fwd=EXPECTED_LAUNCHES)
+    launches = {k: path_launches[k] for k in ("main_slam_viewer", "main_slam_viewer_cli")}
+    headless = [r for t, r in rates if t == "headless"]
+    viewer_rates = [r for t, r in rates if t == "viewer"]
+    emit("main_slam_viewer", frames=N_FRAMES, solver_clouds=clouds, cli_clouds=cli_clouds,
+         frusta_vs_trajectory_max_abs=traj_err,
+         viewer_host_waits_per_chunk={"solver_resident": solver_waits, "cli": cli_waits},
+         viewer_host_waits_at={"solver_resident": solver_where, "cli": cli_where},
+         frames_per_s_in_turns=rates, frames_per_s_headless=headless,
+         frames_per_s_viewer=viewer_rates,
+         cli_stayed_alive="viewer still running" in out.getvalue(),
+         cli_poses_finite=bool(np.isfinite(poses).all()), kernel_launches=launches,
+         expected_launches=expected)
+    for tag, got in launches.items():
+        if got != expected:
+            fail(f"{tag}: launches {got} != {expected}")
+    for tag, n in (("solver", clouds["frames"]), ("cli", cli_clouds["frames"])):
+        if n != N_FRAMES:
+            fail(f"main_slam_viewer: {n} frames reached the {tag}'s viewer, not {N_FRAMES}")
+    if len(cli_solver.viewer.server.scene.clouds) != N_FRAMES:
+        fail("main_slam_viewer: the CLI's viewer sent "
+             f"{len(cli_solver.viewer.server.scene.clouds)} clouds")
+    if not traj_err <= VIEWER_POINT_REL_TOL * max(1.0, float(np.abs(c2w[:, :3, 3]).max())):
+        fail(f"main_slam_viewer: frusta {traj_err} from solver.trajectory()")
+    for tag, w in (("solver", solver_waits), ("cli", cli_waits)):
+        if len(w) != VIEWER_CHUNKS or max(w) > VIEWER_WAITS_PER_CHUNK:
+            fail(f"main_slam_viewer: the {tag}'s viewer waited {w} a chunk "
+                 f"(limit {VIEWER_WAITS_PER_CHUNK})")
+    if "viewer still running" not in out.getvalue() or poses.shape != (N_FRAMES, 16) \
+            or not np.isfinite(poses).all():
+        fail(f"main_slam_viewer: CLI poses {poses.shape} or it did not stay alive")
+
+
+def phase_main_align_viewer(path_launches: dict) -> None:
+    """46. main_align_viewer: ``cli/main_align --method irls`` at SMALL
+    (chunk 15) without ``--headless`` through the stub: the first and last
+    frame of each of the 3 chunks reach the viewer, each cloud equal to the
+    host recomputation from that frame's fetched depth and global
+    extrinsics; then ``keep_alive`` (ended through the module's
+    ``time.sleep``)."""
+    import types
+
+    from da3slam_tpu_torch.cli import main_align
+    from da3slam_tpu_torch.viz import viewer as viewer_mod
+
+    def interrupt(_s):
+        raise KeyboardInterrupt
+
+    args = ["--image_dir", str(frames_dir()), "--model", "small", "--method", "irls",
+            "--chunk_size", "15", "--overlap", "1"]
+    saved_time = viewer_mod.time
+    viewer_mod.time = types.SimpleNamespace(sleep=interrupt)
+    interrupted = False
+    try:
+        with stub_viser() as servers, recorded_viewer_inputs() as (calls, _, _), \
+                counted(path_launches, "main_align_viewer"), \
+                contextlib.redirect_stdout(io.StringIO()):
+            t0 = time.perf_counter()
+            try:
+                main_align.main(args)
+            except KeyboardInterrupt:
+                interrupted = True
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            clouds = check_viewer_clouds(calls)
+    finally:
+        viewer_mod.time = saved_time
+    launches = path_launches["main_align_viewer"]
+    expected = expected_launches(flash_attn_bound_fwd=EXPECTED_LAUNCHES)
+    names = [c.name for c in servers[0].scene.clouds] if servers else []
+    emit("main_align_viewer", args=args[2:], clouds=clouds, cloud_names=names,
+         batches=[len(c[2][1]) for c in calls], kept_alive=interrupted, wall_s=wall,
+         kernel_launches=launches, expected_launches=expected)
+    if names != [f"/map/frame_{i}" for i in range(2 * VIEWER_CHUNKS)] or \
+            [len(c[2][1]) for c in calls] != [2] * VIEWER_CHUNKS:
+        fail(f"main_align_viewer: clouds {names}")
+    if not interrupted:
+        fail("main_align_viewer: the CLI did not keep the viewer alive")
+    if launches != expected:
+        fail(f"main_align_viewer: launches {launches} != {expected}")
+
+
+def phase_main_video(path_launches: dict) -> None:
+    """47. main_video: ``cli/main_video --crop 0.9 --brightness`` with the
+    port's ``video_to_frames`` replaced by a writer of the 31 generated
+    frames (the card has no video codec), ``--mode streaming --traj_formats
+    tum`` (cli/streaming's chunks: 16, overlap 4) and ``--mode slam
+    --headless`` (chunks of 15): the output files ``tests/test_cli.py``
+    checks, finite poses, 12 bound-forward launches a chunk."""
+    from PIL import Image
+
+    import da3slam_tpu_torch.preprocess.host as host
+    from da3slam_tpu_torch.cli import main_video
+
+    frames = make_frames(N_FRAMES, seed=1)
+
+    def write_frames(video_path, output_dir, stride=1, quality=95):
+        out = Path(output_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        for n, f in enumerate(frames[::stride]):
+            Image.fromarray(f).save(out / f"{n:06d}.jpg", quality=quality)
+        return len(frames[::stride])
+
+    rows = {}
+    saved = host.video_to_frames
+    host.video_to_frames = write_frames
+    try:
+        for mode, extra in (("streaming", ["--traj_formats", "tum"]), ("slam", ["--headless"])):
+            out = WORK / f"video_{mode}"
+            with counted(path_launches, f"main_video_{mode}"), \
+                    contextlib.redirect_stdout(io.StringIO()):
+                t0 = time.perf_counter()
+                ran = main_video.main(["--video", "clip.mp4", "--output_dir", str(out),
+                                       "--crop", "0.9", "--brightness", "--mode", mode, *extra])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            files = ["frames/000000.jpg", "slam/camera_poses.txt"] + (
+                ["slam/camera_poses_tum.txt", "slam/combined_pcd.ply"] if mode == "streaming"
+                else [])
+            missing = [f for f in files + ["cropped", "normalized"] if not (out / f).exists()]
+            poses = np.loadtxt(out / "slam" / "camera_poses.txt", ndmin=2)
+            n_chunks = len(ran.chunk_ranges) if mode == "streaming" else ran.chunk_count
+            expected = expected_launches(flash_attn_bound_fwd=12 * n_chunks)
+            launches = path_launches[f"main_video_{mode}"]
+            rows[mode] = {"wall_s": wall, "frames_per_s": N_FRAMES / wall, "chunks": n_chunks,
+                          "missing": missing, "poses_shape": list(poses.shape),
+                          "poses_finite": bool(np.isfinite(poses).all()),
+                          "kernel_launches": launches, "expected_launches": expected}
+            if missing or poses.shape != (N_FRAMES, 16) or not np.isfinite(poses).all():
+                fail(f"main_video {mode}: {rows[mode]}")
+            if launches != expected or not n_chunks:
+                fail(f"main_video {mode}: launches {launches} != {expected}")
+    finally:
+        host.video_to_frames = saved
+    emit("main_video", frames=N_FRAMES, crop=0.9, brightness=True, runs=rows,
+         wall_includes="building SMALL on the CPU, its upload, crop and brightness on the "
+                       "card, JPEG decode and encode")
+
+
+def _small_prediction(n: int):
+    from da3slam_tpu_torch.models.da3 import DepthAnything3
+
+    model = DepthAnything3.from_pretrained("small", device=torch.device("cuda"))
+    paths = sorted(str(p) for p in frames_dir().iterdir())[:n]
+    return model, paths
+
+
+def phase_batch_viewer(path_launches: dict) -> None:
+    """48. batch_viewer: ``show_prediction(mask_sky=True)`` over a SMALL
+    prediction of 8 frames (kept on the card) through the stub: every frame
+    in one batch, each cloud equal to the host recomputation, the kept
+    points' confidences those of ``apply_sky_segmentation`` on the host."""
+    from da3slam_tpu_torch.viz.batch_viewer import prediction_to_viewer_dict, show_prediction
+    from da3slam_tpu_torch.viz.sky import apply_sky_segmentation
+
+    model, paths = _small_prediction(CONF_CHUNK)
+    with stub_viser() as servers, recorded_viewer_inputs() as (calls, _, _):
+        with counted(path_launches, "batch_viewer"):
+            pred = model.inference(image=paths, keep_on_device=True)
+            t0 = time.perf_counter()
+            viewer = show_prediction(pred, block=False, mask_sky=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        clouds = check_viewer_clouds(calls)
+    scene = prediction_to_viewer_dict(pred)
+    masked = apply_sky_segmentation(scene["conf"], scene["images"])
+    s = viewer.point_stride
+    conf_ok = all(np.array_equal(viewer.all_confs[i], masked[i][::s, ::s].reshape(-1)[
+        _host_cloud(scene["depth"][i], scene["intrinsics"][i], scene["extrinsics"][i], s,
+                    viewer.min_depth, viewer.max_depth)[1]]) for i in range(len(paths)))
+    launches = path_launches["batch_viewer"]
+    expected = expected_launches(flash_attn_bound_fwd=12)
+    emit("batch_viewer", frames=len(paths), clouds=clouds, batches=len(calls),
+         sky_share=float((masked == 0).mean()), show_s=wall,
+         sent=len(servers[0].scene.clouds), confs_equal_host_mask=conf_ok,
+         kernel_launches=launches, expected_launches=expected)
+    if len(calls) != 1 or clouds["frames"] != len(paths) or not conf_ok:
+        fail(f"batch_viewer: {len(calls)} batches, {clouds['frames']} frames, confs {conf_ok}")
+    if launches != expected:
+        fail(f"batch_viewer: launches {launches} != {expected}")
+
+
+def phase_profile_trace(path_launches: dict) -> None:
+    """49. profile_trace: a SMALL chunk of 15 frames under
+    ``utils/profiling.py:profile_trace``: the Chrome trace is written and
+    names the bf16 bound forward kernel (PROFILE_KERNEL), 12 launches."""
+    from da3slam_tpu_torch.utils.profiling import TRACE_FILE, profile_trace
+
+    model, paths = _small_prediction(15)
+    model.inference(image=paths, keep_on_device=True)  # warm
+    trace_dir = WORK / "trace"
+    with counted(path_launches, "profile_trace"):
+        with profile_trace(trace_dir) as got:
+            model.inference(image=paths, keep_on_device=True)
+            torch.cuda.synchronize()
+    path = trace_dir / TRACE_FILE
+    events = json.loads(path.read_text())["traceEvents"] if path.exists() else []
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    flash = [e for e in kernels if PROFILE_KERNEL in e.get("name", "")]
+    launches = path_launches["profile_trace"]
+    expected = expected_launches(flash_attn_bound_fwd=12)
+    emit("profile_trace", trace=str(path), yielded=str(got),
+         trace_bytes=path.stat().st_size if path.exists() else 0, kernel_events=len(kernels),
+         flash_events=len(flash), flash_ms=sum(e.get("dur", 0) for e in flash) / 1e3,
+         kernel_launches=launches, expected_launches=expected)
+    if len(flash) != 12:
+        fail(f"profile_trace: {len(flash)} {PROFILE_KERNEL} events in {path}, not 12")
+    if launches != expected:
+        fail(f"profile_trace: launches {launches} != {expected}")
+
+
+def phase_main_conf_figures(path_launches: dict) -> None:
+    """50. main_conf_figures: ``cli/main_conf`` without ``--stats_only`` at
+    SMALL over 8 frames.  Where matplotlib imports: the 8 comparison PNGs
+    and the heatmap grid exist (12 launches).  Where it does not: the CLI
+    stops before the model runs (0 launches) with an error naming
+    matplotlib, and writes nothing."""
+    from da3slam_tpu_torch.cli import main_conf
+
+    try:
+        import matplotlib  # noqa: F401
+        case = "figures"
+    except ImportError:
+        case = "no_matplotlib"
+    out_dir = WORK / "conf_viz"
+    error = None
+    with counted(path_launches, "main_conf_figures"), contextlib.redirect_stdout(io.StringIO()):
+        try:
+            main_conf.main(["--image_dir", str(frames_dir()), "--model", "small",
+                            "--chunk_size", str(CONF_CHUNK), "--output_dir", str(out_dir)])
+        except SystemExit as e:
+            error = str(e)
+    launches = path_launches["main_conf_figures"]
+    pngs = sorted(p.name for p in out_dir.glob("*.png")) if out_dir.exists() else []
+    want_pngs = [f"comparison_{i:03d}.png" for i in range(CONF_CHUNK)] + ["heatmap_grid.png"]
+    expected = expected_launches(flash_attn_bound_fwd=12 if case == "figures" else 0)
+    print(f"main_conf_figures: {case}", flush=True)
+    emit("main_conf_figures", case=case, error=error, pngs=pngs, kernel_launches=launches,
+         expected_launches=expected)
+    if case == "figures" and (error is not None or pngs != want_pngs):
+        fail(f"main_conf_figures: {error}, {pngs}")
+    if case == "no_matplotlib" and (error is None or "matplotlib" not in error
+                                    or out_dir.exists()):
+        fail(f"main_conf_figures: without matplotlib the CLI gave {error!r} "
+             f"(output written: {out_dir.exists()})")
+    if launches != expected:
+        fail(f"main_conf_figures: launches {launches} != {expected}")
+
+
+def _voxel_reference(pts: np.ndarray, cols: np.ndarray, voxel: float):
+    """``voxel_downsample``'s semantics in numpy with the C++ pass's own
+    arithmetic: keys floor(x · (1 / f32 voxel)) in f64, f64 sums in point
+    order, colours rounded by +0.5 and truncated.  (The package's numpy path
+    divides in f32 instead, so a point within rounding of a voxel face may
+    land in the neighbour: the JAX package's paths differ alike.)"""
+    inv = 1.0 / np.float64(np.float32(voxel))
+    keys = np.floor(pts.astype(np.float64) * inv).astype(np.int64)
+    _, inverse, counts = np.unique(keys, axis=0, return_inverse=True, return_counts=True)
+    inverse = inverse.reshape(-1)
+    out_pts = np.zeros((len(counts), 3), np.float64)
+    np.add.at(out_pts, inverse, pts.astype(np.float64))
+    out_cols = np.zeros((len(counts), 3), np.float64)
+    np.add.at(out_cols, inverse, cols.astype(np.float64))
+    return ((out_pts / counts[:, None]).astype(np.float32),
+            (out_cols / counts[:, None] + 0.5).astype(np.uint8))
+
+
+def _timed(fn) -> tuple[float, object]:
+    t0 = time.perf_counter()
+    out = fn()
+    return time.perf_counter() - t0, out
+
+
+def phase_native() -> None:
+    """51. native: the port's C++ point-cloud library built with g++ (timed
+    into a scratch path) and loaded; at LARGE main_align's fused-cloud size
+    (NATIVE_POINTS random points) ``write_ply`` native against the numpy
+    path (bytes equal, seconds) and ``read_ply`` likewise (arrays equal);
+    ``voxel_downsample`` at 10^6 points against a numpy reference of its own
+    arithmetic (``_voxel_reference``: count, centroids within
+    NATIVE_VOXEL_TOL, colours equal; the voxels the package's numpy path
+    assigns otherwise are counted); ``prediction_to_3dgs`` native against the numpy path on uint8
+    images (count, records within NATIVE_GS_TOL, bytes equal or not)."""
+    from types import SimpleNamespace
+
+    import da3slam_tpu_torch.native as native
+    from da3slam_tpu_torch.inout import export3d, ply
+
+    scratch = WORK / "native"
+    scratch.mkdir(parents=True, exist_ok=True)
+    lib = scratch / "pointcloud_timed.so"
+    build_s, _ = _timed(lambda: subprocess.run(native.build_command(lib), check=True,
+                                               capture_output=True, text=True))
+    available = native.is_available()
+    if not available:
+        fail("native: the point-cloud library did not build or load")
+
+    @contextlib.contextmanager
+    def numpy_path():
+        saved = native._lib, native._load_failed
+        native._lib, native._load_failed = None, True
+        try:
+            yield
+        finally:
+            native._lib, native._load_failed = saved
+
+    rng = np.random.default_rng(0)
+    pts = rng.normal(size=(NATIVE_POINTS, 3)).astype(np.float32)
+    cols = rng.integers(0, 256, (NATIVE_POINTS, 3), dtype=np.uint8)
+    times = {}
+    times["write_native_s"], _ = _timed(lambda: ply.write_ply(scratch / "n.ply", pts, cols))
+    with numpy_path():
+        times["write_numpy_s"], _ = _timed(lambda: ply.write_ply(scratch / "p.ply", pts, cols))
+    bytes_equal = (scratch / "n.ply").read_bytes() == (scratch / "p.ply").read_bytes()
+    times["read_native_s"], (rp, rc) = _timed(lambda: ply.read_ply(scratch / "p.ply"))
+    with numpy_path():
+        times["read_numpy_s"], (qp, qc) = _timed(lambda: ply.read_ply(scratch / "n.ply"))
+    read_equal = (np.array_equal(rp, pts) and np.array_equal(rc, cols)
+                  and np.array_equal(qp, pts) and np.array_equal(qc, cols))
+    for f in ("n.ply", "p.ply"):
+        (scratch / f).unlink()
+
+    vp = rng.uniform(-1, 1, (NATIVE_VOXEL_POINTS, 3)).astype(np.float32)
+    vc = rng.integers(0, 256, (NATIVE_VOXEL_POINTS, 3), dtype=np.uint8)
+    times["voxel_native_s"], (a_pts, a_cols) = _timed(
+        lambda: native.voxel_downsample(vp, vc, NATIVE_VOXEL))
+    with numpy_path():
+        times["voxel_numpy_s"], (b_pts, b_cols) = _timed(
+            lambda: native.voxel_downsample(vp, vc, NATIVE_VOXEL))
+    r_pts, r_cols = _voxel_reference(vp, vc, NATIVE_VOXEL)
+
+    def by_voxel(x):
+        # each centroid lies in its voxel; two centroids' coordinates may tie
+        # to rounding, so the floats themselves do not sort alike
+        return x[np.lexsort(np.floor(x / NATIVE_VOXEL).astype(np.int64).T)]
+
+    same = a_pts.shape == r_pts.shape
+    voxel_err = float(np.abs(by_voxel(a_pts) - by_voxel(r_pts)).max()) if same else float("inf")
+    colors_equal = same and np.array_equal(
+        a_cols[np.lexsort(np.floor(a_pts / NATIVE_VOXEL).astype(np.int64).T)],
+        r_cols[np.lexsort(np.floor(r_pts / NATIVE_VOXEL).astype(np.int64).T)])
+    numpy_moved = (int(np.sum(np.abs(by_voxel(a_pts) - by_voxel(b_pts)).max(-1) > 1e-4))
+                   if a_pts.shape == b_pts.shape else None)
+
+    N, H, W = 3, 64, 72
+    depth = rng.uniform(0.5, 3.0, (N, H, W)).astype(np.float32)
+    depth[0, 5, 5] = 0.0
+    K = np.zeros((N, 3, 3), np.float32)
+    K[:, 0, 0] = K[:, 1, 1] = 50.0
+    K[:, 0, 2], K[:, 1, 2], K[:, 2, 2] = W / 2, H / 2, 1.0
+    E = np.tile(np.eye(4, dtype=np.float32)[:3], (N, 1, 1))
+    E[1, :3, 3] = [0.3, -0.1, 0.2]
+    pred = SimpleNamespace(depth=depth, conf=rng.uniform(0.5, 2, (N, H, W)).astype(np.float32),
+                           intrinsics=K, extrinsics=E,
+                           processed_images=rng.integers(0, 256, (N, H, W, 3), dtype=np.uint8))
+    n_native = export3d.prediction_to_3dgs(pred, scratch / "gs_n.ply")
+    with numpy_path():
+        n_numpy = export3d.prediction_to_3dgs(pred, scratch / "gs_p.ply")
+    a, b = export3d.read_3dgs_ply(scratch / "gs_n.ply"), export3d.read_3dgs_ply(scratch / "gs_p.ply")
+    gs_err = max(float(np.abs(a[k] - b[k]).max()) for k in a) if n_native == n_numpy else None
+    gs_bytes_equal = (scratch / "gs_n.ply").read_bytes() == (scratch / "gs_p.ply").read_bytes()
+    emit("native", library=str(native.library_path().relative_to(ROOT)), available=available,
+         build_s=build_s, points=NATIVE_POINTS, ply_bytes=15 * NATIVE_POINTS, **times,
+         write_bytes_equal=bytes_equal, read_arrays_equal=read_equal,
+         voxel_points=NATIVE_VOXEL_POINTS, voxel=NATIVE_VOXEL,
+         voxels_native_reference_numpy_path=[int(len(a_pts)), int(len(r_pts)), int(len(b_pts))],
+         voxel_max_abs_err=voxel_err, voxel_colors_equal=bool(colors_equal),
+         numpy_path_voxels_moved=numpy_moved,
+         gs_splats=[n_native, n_numpy], gs_max_abs_err=gs_err, gs_tol=NATIVE_GS_TOL,
+         gs_bytes_equal=gs_bytes_equal)
+    if not (bytes_equal and read_equal):
+        fail(f"native: PLY bytes equal {bytes_equal}, read arrays equal {read_equal}")
+    if not (voxel_err <= NATIVE_VOXEL_TOL and colors_equal):
+        fail(f"native: voxel_downsample {len(a_pts)} voxels against the reference's "
+             f"{len(r_pts)}, centroids {voxel_err} apart, colours equal {colors_equal}")
+    if gs_err is None or not gs_err <= NATIVE_GS_TOL:
+        fail(f"native: 3DGS splats {n_native} against {n_numpy}, records {gs_err} apart")
+
+
 SOURCES = {
     "flash_attn_bound_fwd": ("da3slam_tpu_torch/ops/csrc/flash_attn_fwd.cu",
                              "da3slam_tpu/ops/flash_attention.py:116", "cross"),
@@ -4069,6 +4759,13 @@ def main() -> None:
     phase_parity_cli(*phase_nested_parity())
     phase_main_conf(path_launches)
     phase_evaluate(nested_out)
+    phase_main_slam_viewer(path_launches)
+    phase_main_align_viewer(path_launches)
+    phase_main_video(path_launches)
+    phase_batch_viewer(path_launches)
+    phase_profile_trace(path_launches)
+    phase_main_conf_figures(path_launches)
+    phase_native()
     small_ref = phase_mesh(path_launches)
     phase_mesh_nccl(path_launches, small_ref)
     phase_mesh_pp_giant(path_launches)

@@ -6,10 +6,12 @@
 Splits the sequence into chunks, runs the model over each with poses
 recovered from the ray maps (``use_ray_pose``), aligns each chunk to the
 previous one by the chosen method, prints per-chunk diagnostics and
-optionally exports the fused cloud as a PLY.  Same flags as the JAX
-package's CLI, plus ``--device`` (default ``cuda``): the run happens on that
-device or not at all.  The viewer is not ported, so ``--headless`` is
-required.
+optionally exports the fused cloud as a PLY.  Without ``--headless`` the
+first and last frame of every chunk go to the viser viewer with their global
+poses, and the process stays alive after the run (headless, with a message,
+where ``viser`` is missing).  Same flags as the JAX package's CLI, plus
+``--device`` (default ``cuda``): the run happens on that device or not at
+all.
 """
 
 from __future__ import annotations
@@ -42,9 +44,6 @@ def main(argv=None) -> None:
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: CUDA is not available")
-    if not args.headless:
-        raise NotImplementedError("the viewer is not ported yet (ROADMAP queue 1, item 13): "
-                                  "run with --headless")
 
     from da3slam_tpu_torch.core.geometry import backproject_depth
     from da3slam_tpu_torch.inout import load_config, load_image_paths, write_ply
@@ -67,6 +66,14 @@ def main(argv=None) -> None:
     print(f"{len(paths)} frames → {len(chunks)} chunks of {args.chunk_size}")
 
     align_cfg = AlignmentConfig(method=args.method)
+    viewer = None
+    if not args.headless:
+        try:
+            from da3slam_tpu_torch.viz.viewer import SLAMViewer
+
+            viewer = SLAMViewer(port=8080, device=device)
+        except ImportError:
+            print("viser unavailable; headless")
 
     def dev(a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=torch.float32, device=device)
@@ -84,6 +91,10 @@ def main(argv=None) -> None:
             colors = apply_chunk_color_to_images_batch(colors, len(all_pts))
         all_pts.append(pts.cpu().numpy()[keep])
         all_cols.append(colors[keep])
+        if viewer is not None:
+            ends = [0, len(pred.depth) - 1]  # the first and last frame of the chunk
+            viewer.add_frames(pred.processed_images[ends], pred.depth[ends], pred.conf[ends],
+                              ext_global[ends], pred.intrinsics[ends])
 
     prev = infer(chunks[0])
     prev_ext_global = prev.extrinsics.astype(np.float64)
@@ -118,6 +129,9 @@ def main(argv=None) -> None:
         pts = np.concatenate(all_pts)
         write_ply(args.output_ply, pts, np.concatenate(all_cols))
         print(f"fused cloud ({len(pts)} pts) → {args.output_ply}")
+
+    if viewer is not None:
+        viewer.keep_alive()
 
 
 if __name__ == "__main__":

@@ -4,13 +4,16 @@
 
 Same flags as the JAX package's CLI, plus ``--device`` (default ``cuda``).
 The run happens on that device or not at all: there is no fallback to the
-CPU.  The viewer is not ported, so ``--headless`` is required.  A config
-with ``Loop.enable: true`` turns on online loop closure.
+CPU.  Without ``--headless`` the solver opens the viser viewer (headless,
+with a message, where ``viser`` is missing) and the process stays alive
+after the run while the viewer is attached (ctrl-c ends it).  A config with
+``Loop.enable: true`` turns on online loop closure.
 """
 
 from __future__ import annotations
 
 import argparse
+import time
 
 import torch
 
@@ -39,20 +42,27 @@ def main(argv=None):
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: CUDA is not available")
-    if not args.headless:
-        raise NotImplementedError("the viewer is not ported yet: run with --headless")
 
     from da3slam_tpu_torch.inout import load_config, save_camera_poses
     from da3slam_tpu_torch.slam.solver import SLAMSolver
 
     config = load_config(args.config) if args.config else DEFAULT_CONFIG
-    solver = SLAMSolver(args.image_dir, config, viewer=None, device=device)
+    solver = SLAMSolver(args.image_dir, config, viewer=None if args.headless else "auto",
+                        device=device)
     solver.run()
 
     if args.output_dir:
         poses, intrs = solver.trajectory()
         save_camera_poses(args.output_dir, poses, intrs)
         print(f"Trajectory ({len(poses)} frames) exported to {args.output_dir}")
+
+    if solver.viewer is not None:
+        print("SLAM finished; viewer still running (ctrl-c to exit)")
+        try:
+            while True:
+                time.sleep(1)
+        except KeyboardInterrupt:
+            pass
     return solver
 
 

@@ -77,6 +77,35 @@ def project_points(
     return torch.stack([u, v], dim=-1), z
 
 
+def normalize_pixel_tracks(
+    tracks: torch.Tensor, hw: tuple[int, int], mode: str = "minus_one_to_one"
+) -> torch.Tensor:
+    """Pixel-coordinate tracks ``[..., 2]`` to a canonical range: ``[-1, 1]``
+    with the corner pixels at the ends ("minus_one_to_one") or ``[0, 1]``
+    ("zero_to_one")."""
+    H, W = hw
+    size = torch.tensor([W - 1.0, H - 1.0], dtype=tracks.dtype, device=tracks.device)
+    unit = tracks / size
+    if mode == "zero_to_one":
+        return unit
+    if mode == "minus_one_to_one":
+        return unit * 2.0 - 1.0
+    raise ValueError(f"unknown mode {mode!r}")
+
+
+def denormalize_pixel_tracks(
+    tracks: torch.Tensor, hw: tuple[int, int], mode: str = "minus_one_to_one"
+) -> torch.Tensor:
+    """Inverse of :func:`normalize_pixel_tracks`."""
+    H, W = hw
+    size = torch.tensor([W - 1.0, H - 1.0], dtype=tracks.dtype, device=tracks.device)
+    if mode == "zero_to_one":
+        return tracks * size
+    if mode == "minus_one_to_one":
+        return (tracks + 1.0) * 0.5 * size
+    raise ValueError(f"unknown mode {mode!r}")
+
+
 def depth_scale_ratio(
     depth_prev: torch.Tensor,
     depth_cur: torch.Tensor,

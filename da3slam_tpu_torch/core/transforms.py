@@ -47,6 +47,11 @@ def se3_to_4x4(E: torch.Tensor) -> torch.Tensor:
     return torch.cat([E, bottom], dim=-2)
 
 
+def se3_from_4x4(E: torch.Tensor) -> torch.Tensor:
+    """Truncate homogeneous ``[..., 4, 4]`` to ``[..., 3, 4]``."""
+    return E[..., :3, :4]
+
+
 def se3_inverse(E: torch.Tensor) -> torch.Tensor:
     """Closed-form inverse of a rigid transform; ``[..., 3, 4]`` or
     ``[..., 4, 4]`` in, the same shape out."""

@@ -5,6 +5,7 @@ from da3slam_tpu_torch.inout.images import (  # noqa: F401
     decode_image,
     extract_keyframes,
     load_image_paths,
+    load_images,
 )
 from da3slam_tpu_torch.inout.ply import merge_ply_files, read_ply, write_ply  # noqa: F401
 from da3slam_tpu_torch.inout.trajectory import (  # noqa: F401

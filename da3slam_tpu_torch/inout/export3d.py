@@ -1,5 +1,5 @@
-"""3-D scene export: GLB point clouds and 3D-Gaussian-Splatting PLY (a numpy
-copy of ``da3slam_tpu/inout/export3d.py``, its pure-numpy path).
+"""3-D scene export: GLB point clouds and 3D-Gaussian-Splatting PLY
+(counterpart of ``da3slam_tpu/inout/export3d.py``).
 
 - :func:`export_glb` — a minimal binary glTF 2.0 writer: one POINTS
   primitive with per-vertex colors.
@@ -8,9 +8,9 @@ copy of ``da3slam_tpu/inout/export3d.py``, its pure-numpy path).
   pixel becomes a gaussian whose scale is its metric pixel footprint and
   whose opacity comes from the confidence map.
 
-The JAX package writes anisotropic splats through an optional C++ writer;
-this copy has only its numpy path, which writes the same bytes for uint8
-images.
+Anisotropic splats go through the port's C++ writer (``native/``) where it
+builds, as the JAX package's go through its own; the numpy path stays for a
+machine without ``g++``.
 """
 
 from __future__ import annotations
@@ -314,7 +314,32 @@ def prediction_to_3dgs(
     Returns the number of gaussians written.
 
     Backprojection runs on the host in numpy (the math of
-    ``core.geometry.backproject_depth``): export is an offline host path."""
+    ``core.geometry.backproject_depth``): export is an offline host path.
+    The anisotropic path goes through the port's C++ writer where it builds
+    (``native/src/pointcloud.cpp:write_3dgs_splats``, one pass over the
+    grid), else through numpy; float images are quantized to uint8 for the
+    C++ layout (at most 0.5/255 in colour from the numpy path)."""
+    from da3slam_tpu_torch import native
+
+    if anisotropic and native.is_available():
+        Path(path).parent.mkdir(parents=True, exist_ok=True)
+        depth = np.asarray(prediction.depth)
+        pts_g = _backproject_np(depth, np.asarray(prediction.intrinsics),
+                                np.asarray(prediction.extrinsics), stride=stride)
+        cols = np.asarray(prediction.processed_images)[:, ::stride, ::stride]
+        if cols.dtype != np.uint8:
+            # export_3dgs_ply's convention: floats in [0, 1] scale to 0-255,
+            # floats already in 0-255 just quantize
+            colsf = cols.astype(np.float32)
+            if colsf.size and colsf.max() <= 1.0:
+                colsf = colsf * 255.0
+            cols = np.clip(np.round(colsf), 0, 255).astype(np.uint8)
+        conf = np.asarray(prediction.conf)[:, ::stride, ::stride]
+        n = native.write_3dgs_splats_native(path, pts_g, cols, conf,
+                                            depth[:, ::stride, ::stride], conf_threshold,
+                                            opacity_scale)
+        if n is not None:
+            return n
     d = _prediction_to_3dgs_arrays(
         prediction, stride, conf_threshold, opacity_scale, anisotropic
     )

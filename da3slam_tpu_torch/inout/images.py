@@ -39,3 +39,8 @@ def decode_image(path: str | Path) -> np.ndarray:
 
     with Image.open(path) as im:
         return np.asarray(im.convert("RGB"))
+
+
+def load_images(paths: list[str]) -> np.ndarray:
+    """Decode to a stacked ``[N, H, W, 3]`` uint8 array (host-side)."""
+    return np.stack([decode_image(p) for p in paths])

@@ -1,7 +1,8 @@
-"""PLY point-cloud I/O (counterpart of ``da3slam_tpu/inout/ply.py``, numpy
-only): vertices with optional uint8 RGB colors, binary little-endian or ascii,
-the bytes the JAX package's writer produces; the reader and the merge of a
-directory's files keep the JAX package's pure-Python path."""
+"""PLY point-cloud I/O (counterpart of ``da3slam_tpu/inout/ply.py``):
+vertices with optional uint8 RGB colors, binary little-endian or ascii, the
+bytes the JAX package's writer produces, and the merge of a directory's
+files.  Binary files go through the port's C++ library (``native/``) where
+it builds, else through numpy."""
 
 from __future__ import annotations
 
@@ -27,6 +28,14 @@ def write_ply(
             # for all-dark 0-255 floats: pass uint8 to be explicit)
             scale = 255.0 if (colors.size and colors.max() <= 1.0) else 1.0
             colors = np.clip(colors * scale, 0, 255).astype(np.uint8)
+
+    if binary:
+        # the C++ writer streams straight from the buffers
+        from da3slam_tpu_torch import native
+
+        Path(path).parent.mkdir(parents=True, exist_ok=True)
+        if native.write_ply_native(path, points, colors if has_color else None):
+            return
 
     header = ["ply"]
     header.append("format binary_little_endian 1.0" if binary else "format ascii 1.0")
@@ -61,6 +70,12 @@ def write_ply(
 def read_ply(path: str | Path) -> tuple[np.ndarray, np.ndarray | None]:
     """Read a PLY written by :func:`write_ply` (and the common subset of
     ascii/binary_little_endian vertex-only files)."""
+    from da3slam_tpu_torch import native
+
+    fast = native.read_ply_native(path)
+    if fast is not None:
+        return fast
+
     with open(path, "rb") as f:
         header_lines = []
         while True:

@@ -248,6 +248,26 @@ def _import_heads(imp: _Import, net) -> None:
 
 
 @torch.no_grad()
+def import_torch_encoder(state_dict: Mapping[str, Any], net, cfg) -> tuple[Any, ImportReport]:
+    """Copy the DINOv2-style encoder tensors of ``state_dict`` into ``net``
+    in place; ``unused`` lists every tensor the encoder did not take (the
+    heads' among them).  Returns ``(net, report)``."""
+    imp = _Import(state_dict)
+    _import_encoder(imp, net, cfg)
+    return net, ImportReport(imp.matched, imp.missing, sorted(set(imp.sd) - imp.used))
+
+
+@torch.no_grad()
+def import_torch_heads(state_dict: Mapping[str, Any], net) -> tuple[Any, ImportReport]:
+    """Copy the DPT depth-head and camera-head tensors of ``state_dict`` into
+    ``net`` in place; ``unused`` lists every tensor the heads did not take.
+    Returns ``(net, report)``."""
+    imp = _Import(state_dict)
+    _import_heads(imp, net)
+    return net, ImportReport(imp.matched, imp.missing, sorted(set(imp.sd) - imp.used))
+
+
+@torch.no_grad()
 def import_torch_checkpoint(state_dict: Mapping[str, Any], net, cfg) -> tuple[Any, ImportReport]:
     """Copy a DA3/DINOv2-style state dict (tensors or numpy arrays) into
     ``net``'s parameters in place: encoder, DPT head, camera head.  Returns

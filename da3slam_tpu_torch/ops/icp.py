@@ -40,6 +40,29 @@ def estimate_normals(point_map: torch.Tensor) -> torch.Tensor:
     return -n * torch.where(flip == 0, torch.ones_like(flip), flip)
 
 
+def bilinear_gather(point_map: torch.Tensor, uv: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Bilinearly sample a ``[H, W, C]`` map at continuous pixel coordinates
+    ``[N, 2]`` (u = column, v = row).  Returns ``(values [N, C], in_bounds
+    [N])``: a coordinate within half a pixel of the border counts as inside
+    and reads the clamped edge; farther out ``in_bounds`` is False (the
+    values are still the clamped edge's, as in the JAX package)."""
+    H, W = point_map.shape[0], point_map.shape[1]
+    u, v = uv[..., 0], uv[..., 1]
+    # half-pixel slop so border pixels survive f32 projection round-trip noise
+    in_bounds = (u >= -0.5) & (u <= W - 0.5) & (v >= -0.5) & (v <= H - 0.5)
+    u = u.clamp(0.0, W - 1.0)
+    v = v.clamp(0.0, H - 1.0)
+    u0 = torch.floor(u).long()
+    v0 = torch.floor(v).long()
+    u1 = (u0 + 1).clamp_max(W - 1)
+    v1 = (v0 + 1).clamp_max(H - 1)
+    fu = (u - u0)[..., None]
+    fv = (v - v0)[..., None]
+    top = point_map[v0, u0] * (1 - fu) + point_map[v0, u1] * fu
+    bot = point_map[v1, u0] * (1 - fu) + point_map[v1, u1] * fu
+    return top * (1 - fv) + bot * fv, in_bounds
+
+
 @highest_precision()
 def icp_point_to_point(
     src_points: torch.Tensor,

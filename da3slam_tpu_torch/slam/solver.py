@@ -21,8 +21,15 @@ reference does: 50 waits over the same frames.
 chunk is enrolled for retrieval, and a gated loop edge re-anchors the
 trajectory so far through the pose graph.  It consumes host poses and
 descriptors every chunk, so device-resident alignment then fetches them with
-the chunk's stats in one packed transfer a chunk.  The viewer is not ported:
-an argument that enables it is rejected.
+the chunk's stats in one packed transfer a chunk.
+
+``viewer="auto"`` (the default, as in the JAX package) opens a
+``viz/viewer.py:SLAMViewer`` on ``Model.port``, or runs headless with a
+message where ``viser`` is missing; ``viewer=None`` is headless, and any
+other object is used as the viewer.  Each chunk's new frames (the overlap
+with the previous chunk skipped) go to it as one batch on the solver's
+device: backprojected, strided and masked where the chunk lives, then one
+device→host transfer (``SLAMViewer.add_frames``).
 """
 
 from __future__ import annotations
@@ -50,11 +57,8 @@ def fetch_packed(tensors: List[torch.Tensor]) -> List[np.ndarray]:
 
 
 class SLAMSolver:
-    def __init__(self, image_dir: str, config: dict, model: Any = None, viewer: Any = None,
+    def __init__(self, image_dir: str, config: dict, model: Any = None, viewer: Any = "auto",
                  device: str | torch.device = "cuda"):
-        if viewer is not None:
-            raise NotImplementedError("the viewer is not ported yet: pass viewer=None "
-                                      "(main_slam --headless)")
         self.config = config
         self.device = torch.device(device)
         model_cfg = config.get("Model", {})
@@ -85,7 +89,7 @@ class SLAMSolver:
             from da3slam_tpu_torch.models.nested import DepthAnything3Nested
 
             self.prefetch = isinstance(self.model, (DepthAnything3, DepthAnything3Nested))
-        self.viewer = None
+        self.viewer = self._init_viewer() if viewer == "auto" else viewer
 
         # optional online loop closure (off by default; slam/online_loop.py)
         self.loop_closer = None
@@ -106,6 +110,18 @@ class SLAMSolver:
         model_path = self.config.get("Weights", {}).get("DA3", "small")
         print(f"Loading DA3 model from {model_path}...")
         return DepthAnything3.from_pretrained(model_path, device=self.device)
+
+    def _init_viewer(self):
+        port = self.config.get("Model", {}).get("port", 8080)
+        try:
+            from da3slam_tpu_torch.viz.viewer import SLAMViewer
+
+            viewer = SLAMViewer(port=port, device=self.device)
+            print(f"Viewer initialized on port {port}")
+            return viewer
+        except ImportError as e:
+            print(f"Viewer unavailable ({e}); running headless")
+            return None
 
     # -- chunk plumbing ----------------------------------------------------
     def should_run_chunk_prediction(self) -> bool:
@@ -237,6 +253,29 @@ class SLAMSolver:
         self.prev_overlap_aligned_3x4 = np.asarray(updated[-1][-1], np.float32)
         print(f"  [loop] trajectory re-anchored over {len(updated)} chunks")
 
+    # -- viewer ------------------------------------------------------------
+    def update_viewer(self, chunk_prediction: Dict, start: int = 0) -> None:
+        """Send the chunk's frames from ``start`` on (the overlap with the
+        previous chunk is skipped) with their global poses, as one batch:
+        the viewer's geometry runs where the chunk lives and costs one
+        device→host transfer."""
+        if self.viewer is None:
+            return
+        ext_global = chunk_prediction.get("extrinsics_global")
+        if ext_global is None:
+            print("warn: no extrinsics_global; falling back to local extrinsics")
+            ext_global = chunk_prediction["extrinsics"]
+        n = len(chunk_prediction["image_paths"])
+        if start >= n:
+            return
+        self.viewer.add_frames(
+            images=chunk_prediction["processed_images"][start:n],
+            depth=chunk_prediction["depth"][start:n],
+            conf=chunk_prediction["conf"][start:n],
+            extrinsics=ext_global[start:n],
+            intrinsics=chunk_prediction["intrinsics"][start:n],
+        )
+
     # -- main loop ---------------------------------------------------------
     def process_frame(self, image_path: str) -> None:
         self.frame_buffer.append(image_path)
@@ -270,6 +309,8 @@ class SLAMSolver:
         if self.loop_closer is not None:
             with self.timer("loop"):
                 self._loop_stage(cur, self.results[-1]["dedup_skip"], depth_scale)
+        with self.timer("viewer"):
+            self.update_viewer(cur, start=self.results[-1]["dedup_skip"])
         self.prev_chunk_prediction = cur
         self.update_buffer_after_chunk_processed()
         self.chunk_count += 1
@@ -318,6 +359,8 @@ class SLAMSolver:
         if self.loop_closer is not None:
             with self.timer("loop"):
                 self._loop_stage(cur, dedup_skip, depth_scale)
+        with self.timer("viewer"):
+            self.update_viewer(cur, start=dedup_skip)
         self.prev_chunk_prediction = cur
         self.frame_buffer.clear()
         self.chunk_count += 1

@@ -1,1 +1,1 @@
-"""Stage timing."""
+"""Stage timing and device traces."""

@@ -1,2 +1,3 @@
-"""Visualisation helpers: confidence-map statistics and the chunk debug
-colours (the viewer and the confidence figures are not ported)."""
+"""Visualisation: the incremental viewer (``viewer``, on viser), the one-shot
+prediction viewer, the sky mask, confidence statistics and figures, and the
+chunk debug colours."""

@@ -141,6 +141,49 @@ class TestReportEqualsJax:
         assert all(torch.equal(sa[k], sb[k]) for k in sa)
 
 
+class TestSectionImports:
+    """``import_torch_encoder`` and ``import_torch_heads``, the two sections
+    of the import by themselves: the JAX package's reports (its ``unused``
+    lists what the section left, the other section's tensors among them)."""
+
+    @staticmethod
+    def both(sd, section, mlp_type="mlp", preset="tiny"):
+        jcfg, jp = jparams(mlp_type, seed=1, preset=preset)
+        cfg = get_preset(preset).with_overrides(mlp_type=mlp_type)
+        net = DA3Net(cfg)
+        net.load_state_dict(convert(jp), strict=True)
+        if section == "encoder":
+            jnew, jreport = jti.import_torch_encoder(sd, jp, jcfg)
+            net, report = ti.import_torch_encoder(sd, net, cfg)
+        else:
+            jnew, jreport = jti.import_torch_heads(sd, jp)
+            net, report = ti.import_torch_heads(sd, net)
+        return net, report, jnew, jreport
+
+    @pytest.mark.parametrize("section", ["encoder", "heads"])
+    @pytest.mark.parametrize("case", ["as_exported", "backbone_prefixed", "head_alternates",
+                                      "partial", "mask_token", "empty"])
+    def test_report_and_weights(self, case, section):
+        _, jp = jparams()
+        sd = _cases()[case](jti.export_torch_style(jp))
+        net, report, jnew, jreport = self.both(sd, section)
+        assert_same_report(report, jreport)
+        want = convert(jax.tree.map(np.asarray, jnew))
+        got = net.state_dict()
+        for k, v in want.items():
+            assert torch.equal(got[k], v), k
+
+    @pytest.mark.parametrize("section", ["encoder", "heads"])
+    def test_published_small_schema(self, section):
+        """The published SMALL names (tests/fixtures/gen_torch_schema.py's
+        manifest) through one section in both packages: the same report."""
+        schema = json.loads((FIXTURES / "torch_schema_small.json").read_text())
+        sd = {k: np.broadcast_to(np.float32(0.5), tuple(s)) for k, s in schema["keys"].items()}
+        _, report, _, jreport = self.both(sd, section, preset="small")
+        assert_same_report(report, jreport)
+        assert report.matched and report.unused
+
+
 class TestPosEmbedResample:
     @pytest.mark.parametrize("side", [36, 16])
     @pytest.mark.parametrize("cls_row", [True, False])

@@ -11,6 +11,7 @@ host code in f64 or on the same files, equal; the evaluation's JSON within
 """
 
 import json
+import sys
 
 import numpy as np
 import pytest
@@ -157,11 +158,21 @@ class TestMainConf:
             # a pixel within rounding of a bin edge may fall on either side
             assert np.abs(s["counts"] - want["counts"]).sum() <= 2
 
-    def test_refuses_figures_and_missing_cuda(self, tmp_path):
+    def test_refuses_figures_and_missing_cuda(self, tmp_path, monkeypatch):
+        """The figures are drawn now: without --stats_only the run reaches the
+        image check; without matplotlib it stops first, naming the module,
+        and writes nothing; without CUDA it refuses."""
         from da3slam_tpu_torch.cli import main_conf as tmain
 
-        with pytest.raises(NotImplementedError, match="stats_only"):
-            tmain.main(["--image_dir", str(tmp_path), "--device", "cpu"])
+        out = tmp_path / "figs"
+        with pytest.raises(SystemExit, match="no images"):
+            tmain.main(["--image_dir", str(tmp_path), "--device", "cpu", "--output_dir", str(out)])
+        with monkeypatch.context() as m:
+            m.setitem(sys.modules, "matplotlib", None)
+            with pytest.raises(SystemExit, match="matplotlib"):
+                tmain.main(["--image_dir", str(tmp_path), "--device", "cpu",
+                            "--output_dir", str(out)])
+        assert not out.exists()
         with pytest.raises(SystemExit, match="no images"):
             tmain.main(["--image_dir", str(tmp_path), "--device", "cpu", "--stats_only"])
         if not torch.cuda.is_available():

@@ -164,3 +164,55 @@ class TestGeometry:
         j_out = jg.depth_scale_ratio(jnp.asarray(d_prev), jnp.asarray(d_cur))
         np.testing.assert_allclose(float(t_out), float(j_out), atol=ATOL)
         np.testing.assert_allclose(float(t_out), 1.7, rtol=1e-5)
+
+
+class TestPublicNames:
+    """The helpers no path of the port calls, held to the JAX package's
+    (ROADMAP queue 1, item 13e)."""
+
+    def test_se3_from_4x4(self):
+        E = rand_w2c(np.random.default_rng(8), 3)
+        E4 = np.array(jt.se3_to_4x4(jnp.asarray(E)))
+        close(tt.se3_from_4x4(torch.from_numpy(E4)), jt.se3_from_4x4(jnp.asarray(E4)), atol=0)
+        close(tt.se3_from_4x4(tt.se3_to_4x4(torch.from_numpy(E))), E, atol=0)
+
+    @pytest.mark.parametrize("mode", ["minus_one_to_one", "zero_to_one"])
+    def test_pixel_tracks(self, mode):
+        """``tests/test_misc.py::TestTrackNormalization``'s round trip, both
+        packages on the same tracks."""
+        tracks = np.random.default_rng(0).uniform(0, 63, (10, 5, 2)).astype(np.float32)
+        n = tg.normalize_pixel_tracks(torch.from_numpy(tracks), (48, 64), mode)
+        close(n, jg.normalize_pixel_tracks(jnp.asarray(tracks), (48, 64), mode), atol=1e-7)
+        back = tg.denormalize_pixel_tracks(n, (48, 64), mode)
+        close(back, jg.denormalize_pixel_tracks(jnp.asarray(n.numpy()), (48, 64), mode),
+              atol=1e-6)
+        close(back, tracks, atol=1e-4)
+        corners = torch.tensor([[0.0, 0.0], [63.0, 47.0]])
+        want = [[-1, -1], [1, 1]] if mode == "minus_one_to_one" else [[0, 0], [1, 1]]
+        close(tg.normalize_pixel_tracks(corners, (48, 64), mode), np.array(want), atol=1e-6)
+        with pytest.raises(ValueError, match="unknown mode"):
+            tg.normalize_pixel_tracks(corners, (48, 64), "bad")
+        with pytest.raises(ValueError, match="unknown mode"):
+            tg.denormalize_pixel_tracks(corners, (48, 64), "bad")
+
+    def test_bilinear_gather(self):
+        """Inside, on the border, within the half-pixel slop and beyond it."""
+        from da3slam_tpu.ops import icp as jicp
+        from da3slam_tpu_torch.ops import icp as ticp
+
+        rng = np.random.default_rng(9)
+        H, W = 6, 8
+        pm = rng.normal(size=(H, W, 3)).astype(np.float32)
+        uv = np.concatenate([
+            rng.uniform(0, W - 1, (40, 2)) * [1, (H - 1) / (W - 1)],
+            [[0, 0], [W - 1, H - 1], [W - 1, 0], [0, H - 1], [3.5, H - 1], [W - 1, 2.25]],
+            [[-0.5, 2], [W - 0.5, 2], [3, -0.5], [3, H - 0.5], [-0.4, -0.4]],
+            [[-0.51, 2], [W - 0.49, 2], [3, -2.0], [3, H + 3.0], [-5, H + 5], [W + 9, -9]],
+        ]).astype(np.float32)
+        vals, ok = ticp.bilinear_gather(torch.from_numpy(pm), torch.from_numpy(uv))
+        jvals, jok = jicp.bilinear_gather(jnp.asarray(pm), jnp.asarray(uv))
+        close(vals, jvals, atol=1e-6)
+        np.testing.assert_array_equal(ok.numpy(), np.asarray(jok))
+        assert ok.numpy()[:51].all() and not ok.numpy()[51:].any()
+        np.testing.assert_array_equal(vals.numpy()[40], pm[0, 0])
+        np.testing.assert_array_equal(vals.numpy()[41], pm[H - 1, W - 1])

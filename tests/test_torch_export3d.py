@@ -1,9 +1,10 @@
-"""The port's numpy copy of the 3-D exporters (``inout/export3d.py``) and
+"""The port's 3-D exporters (``inout/export3d.py``) and
 ``inference(export_format="glb")`` against the JAX package on the CPU.
 
-The 3DGS PLY and GLB files are byte for byte the JAX package's; the JAX
-side's C++ writer is switched off, as ``tests/test_native.py`` does, since
-the port copies only the numpy path.
+The 3DGS PLY and GLB files are byte for byte the JAX package's.  Here both
+packages' C++ writers are switched off, as ``tests/test_native.py`` does, so
+the numpy paths meet; ``tests/test_torch_native.py`` holds the two C++
+writers to each other.
 """
 
 from __future__ import annotations
@@ -30,14 +31,19 @@ from da3slam_tpu_torch.models.da3 import DA3Net, DepthAnything3
 
 @contextlib.contextmanager
 def jax_numpy_path():
-    """The JAX package's exporter without its native writer."""
+    """Both packages' exporters without their native writers (the numpy
+    paths)."""
     import da3slam_tpu.native as native
+    import da3slam_tpu_torch.native as tnative
 
-    lib, native._lib, native._load_failed = native._lib, None, True
+    saved = [(m, m._lib, m._load_failed) for m in (native, tnative)]
+    for m in (native, tnative):
+        m._lib, m._load_failed = None, True
     try:
         yield
     finally:
-        native._lib, native._load_failed = lib, False
+        for m, lib, failed in saved:
+            m._lib, m._load_failed = lib, failed
 
 
 def prediction(seed: int, images: str = "uint8", N: int = 3, H: int = 40, W: int = 36):
@@ -128,7 +134,7 @@ class TestSplatsFromPrediction:
         with jax_numpy_path():
             b = jexp.splats_from_prediction(p, **kw)
             n_j = jexp.prediction_to_3dgs(p, tmp_path / "j.ply", **kw)
-        n_t = exp.prediction_to_3dgs(p, tmp_path / "t.ply", **kw)
+            n_t = exp.prediction_to_3dgs(p, tmp_path / "t.ply", **kw)
         assert a.keys() == b.keys()
         for key in a:
             if b[key] is None:

@@ -1,8 +1,10 @@
 """The port stands alone: importing every ``da3slam_tpu_torch`` module (and
 ``chip_smoke.py``) pulls in neither JAX, nor the JAX package, nor the
 ``safetensors`` package (the port reads and writes that format itself); no
-module reaches the JAX package's native library either (the port's exporters
-are its numpy path)."""
+module reaches the JAX package's native library either: the port's exporters
+use its own copy of the point-cloud library (``native/``, built under another
+name), never ``libda3pc``.  The viewer, sky mask and figures import ``viser``,
+``onnxruntime`` and ``matplotlib`` only when they run, never at import."""
 
 import subprocess
 import sys
@@ -46,6 +48,11 @@ PARALLEL_SLICE = ("parallel.comm", "parallel.mesh", "parallel.pp_forward",
 # multi-device training: the sharding rules, the train steps, their
 # checkpoints and the CLI
 TRAIN_SLICE = ("cli.train", "parallel.checkpoint", "parallel.sharding", "parallel.train")
+# the last modules: the viewer and its one-shot form, the sky mask, the video
+# CLI and the native point-cloud library
+LAST_SLICE = ("viz.viewer", "viz.batch_viewer", "viz.sky", "cli.main_video", "native")
+# optional packages these import only where they run
+OPTIONAL = ("viser", "matplotlib", "onnxruntime")
 
 
 def test_no_module_imports_jax_or_the_jax_package():
@@ -56,16 +63,18 @@ def test_no_module_imports_jax_or_the_jax_package():
     walked = out[2].split(",")
     assert all(f"da3slam_tpu_torch.{m}" in walked
                for m in LOOP_SLICE + MESH_SLICE + GS_SLICE + NESTED_SLICE + PARALLEL_SLICE
-               + TRAIN_SLICE)
+               + TRAIN_SLICE + LAST_SLICE)
 
 
-@pytest.mark.parametrize("module", GS_SLICE + NESTED_SLICE + PARALLEL_SLICE + TRAIN_SLICE)
+@pytest.mark.parametrize("module", GS_SLICE + NESTED_SLICE + PARALLEL_SLICE + TRAIN_SLICE
+                         + LAST_SLICE)
 def test_3dgs_slice_imports_alone(module):
-    """Each module of the 3DGS slice, of the nested-tier slice and of the
-    multi-device slices, imported by itself in a fresh process, loads neither JAX, nor the JAX package, nor a
-    shared library of it."""
+    """Each module of the 3DGS slice, of the nested-tier slice, of the
+    multi-device slices and of the last one, imported by itself in a fresh
+    process, loads neither JAX, nor the JAX package, nor a shared library of
+    it, nor viser, matplotlib or onnxruntime."""
     code = (f"import sys, da3slam_tpu_torch.{module}\n"
-            "bad = sorted(m for m in sys.modules if m in ('jax', 'da3slam_tpu') "
+            f"bad = sorted(m for m in sys.modules if m in ('jax', 'da3slam_tpu') + {OPTIONAL!r} "
             "or m.startswith(('jax.', 'jaxlib', 'da3slam_tpu.')))\n"
             "maps = open('/proc/self/maps').read() if sys.platform == 'linux' else ''\n"
             "print(bad, 'libda3pc' in maps)")

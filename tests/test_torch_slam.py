@@ -8,6 +8,7 @@ f32 solve (ICP) or a chain of chunk alignments compounds rounding.
 """
 
 import functools
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -381,7 +382,7 @@ class TestSolver:
         chunks leave the device in ONE ``.cpu()`` call and come back bit for
         bit in their own dtypes; arrays that were already fetched stay."""
         solver = SLAMSolver(str(tmp_path), self.CONFIG, model=SyntheticDA3(make_trajectory(3)),
-                            device="cpu")
+                            viewer=None, device="cpu")
         rng = np.random.default_rng(0)
         ext = [torch.from_numpy(rng.normal(size=(5, 3, 4))) for _ in range(3)]  # f64
         intr = [torch.from_numpy(rng.normal(size=(5, 3, 3)).astype(np.float32)) for _ in range(3)]
@@ -412,12 +413,20 @@ class TestSolver:
         solver._materialize()  # nothing left on the device: no fetch, no output
         assert len(calls) == 1 and capsys.readouterr().out == ""
 
-    def test_rejects_what_is_not_ported(self, tmp_path):
-        """The viewer is refused; loop closure is ported now, so a Loop block
+    def test_rejects_what_is_not_ported(self, tmp_path, capsys, monkeypatch):
+        """Nothing is refused now.  ``viewer="auto"`` (the default) runs
+        headless with the JAX package's message where viser is missing
+        (test_torch_viewer.py drives the viewer itself), and a Loop block
         builds the closer on the solver's device (test_torch_loop.py runs it)."""
         model = SyntheticDA3(make_trajectory(3))
-        with pytest.raises(NotImplementedError, match="viewer"):
-            SLAMSolver(str(tmp_path), self.CONFIG, model=model, viewer="auto", device="cpu")
+        monkeypatch.setitem(sys.modules, "viser", None)  # an import of viser fails
+        for viewer in ("auto", None):
+            solver = SLAMSolver(str(tmp_path), self.CONFIG, model=model, viewer=viewer,
+                                device="cpu")
+            assert solver.viewer is None
+        out = capsys.readouterr().out.splitlines()
+        assert [ln for ln in out if "Viewer" in ln] == [
+            "Viewer unavailable (import of viser halted; None in sys.modules); running headless"]
         solver = SLAMSolver(str(tmp_path), {**self.CONFIG, "Loop": {"enable": True}}, model=model,
                             device="cpu")
         assert solver.loop_closer is not None and solver.loop_closer.device.type == "cpu"
@@ -450,6 +459,22 @@ class TestHostIO:
             save(out, c2w, intr, chunk_indices=np.array([0, 0, 1, 1]))
         for name in ("camera_poses.txt", "intrinsic.txt", "camera_poses.ply"):
             assert (tmp_path / "t" / name).read_bytes() == (tmp_path / "j" / name).read_bytes()
+
+    def test_load_images_matches_jax(self, tmp_path):
+        from PIL import Image
+
+        from da3slam_tpu.inout.images import load_images as j_load
+        from da3slam_tpu_torch.inout import load_image_paths, load_images
+
+        frames = make_frames(3)
+        for i, f in enumerate(frames):
+            Image.fromarray(f).save(tmp_path / f"{i:06d}.png")
+        Image.fromarray(frames[0][..., 0]).save(tmp_path / "000003.png")  # grey → RGB
+        paths = load_image_paths(tmp_path)
+        got = load_images(paths)
+        assert got.dtype == np.uint8 and got.shape == (4, 56, 70, 3)
+        np.testing.assert_array_equal(got, j_load(paths))
+        np.testing.assert_array_equal(got[:3], frames)
 
     def test_prefetcher_returns_decoded_frames(self, tmp_path):
         from PIL import Image
@@ -622,11 +647,13 @@ class TestWholeSlice:
         np.testing.assert_array_equal(tc, jc)
 
     def test_main_align_refuses_what_is_not_ported(self, tmp_path):
+        """Nothing is refused now: without --headless the run reaches the
+        same checks (the viewer opens after them, test_torch_viewer.py)."""
         from da3slam_tpu_torch.cli import main_align
 
         base = ["--image_dir", str(tmp_path), "--device", "cpu"]
-        with pytest.raises(NotImplementedError, match="headless"):
-            main_align.main(base)
+        with pytest.raises(SystemExit, match="no images"):
+            main_align.main(base + ["--model", "tiny"])
         with pytest.raises(SystemExit, match="no images"):
             main_align.main(base + ["--headless", "--model", "tiny"])
         # --debug_color is ported (tests/test_torch_conf_eval.py holds its
@@ -634,11 +661,20 @@ class TestWholeSlice:
         with pytest.raises(SystemExit, match="no images"):
             main_align.main(base + ["--headless", "--model", "tiny", "--debug_color"])
 
-    def test_cli_refuses_missing_cuda_and_viewer(self, tmp_path):
+    def test_cli_refuses_missing_cuda_and_viewer(self, tmp_path, capsys, monkeypatch):
+        """Without --headless the CLI asks for the viewer and, where viser is
+        missing, runs headless as the JAX CLI does; without CUDA it refuses."""
         from da3slam_tpu_torch.cli import main_slam
 
-        with pytest.raises(NotImplementedError, match="headless"):
-            main_slam.main(["--image_dir", str(tmp_path), "--device", "cpu"])
+        monkeypatch.setitem(sys.modules, "viser", None)
+        cfg = tmp_path / "tiny.yaml"
+        cfg.write_text("Weights: {DA3: tiny}\nModel: {chunk_size: 4}\n")
+        frames = tmp_path / "empty"
+        frames.mkdir()
+        solver = main_slam.main(["--image_dir", str(frames), "--config", str(cfg),
+                                 "--device", "cpu"])
+        assert solver.viewer is None
+        assert "running headless" in capsys.readouterr().out
         if torch.cuda.is_available():
             return
         with pytest.raises(RuntimeError, match="CUDA is not available"):
