@@ -1,0 +1,51 @@
+"""The readings that the limits of ``correct`` are set from: every number
+compared, for the program and for each control, on each seed, in one
+process (one line of JSON a run on standard output).
+
+    python3 slambench/tools/readings.py <cell> <seconds> <seeds,...> [control,...]
+
+Controls (each on the first three seeds): ``program`` (no control, every seed), ``w8a8`` (the program's own int8 path),
+``fp8`` (the reference with float8 activations in the program's place),
+``tf32-align`` (the reference's alignment in TF32 in the program's place).
+The benchmark's own runs do not run them.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+sys.path.insert(0, str(ROOT))
+
+
+def main() -> None:
+    import torch
+
+    import slambench.run as bench_run
+    from slambench.lib.spec import load_cell
+
+    name, seconds = sys.argv[1], float(sys.argv[2])
+    seeds = [int(s) for s in sys.argv[3].split(",")]
+    controls = sys.argv[4].split(",") if len(sys.argv) > 4 else ["program"]
+    cell = load_cell(name)
+    device = torch.device("cuda")
+    for control in controls:
+        for seed in (seeds if control == "program" else seeds[:3]):
+            bench_run.T_START = time.perf_counter()
+            result, run, numbers = bench_run.measure(
+                cell, seed, seconds, False, device, None if control == "program" else control)
+            row = {"cell": name, "control": control, "seed": seed, "seconds": seconds,
+                   "numbers": numbers, "correct": result["correct"],
+                   "metrics": {k: v["value"] for k, v in result["metrics"].items()},
+                   "chunks": len(run.chunks)}
+            line = json.dumps(row)
+            print(line, flush=True)
+            del result, run
+            torch.cuda.empty_cache()
+
+
+if __name__ == "__main__":
+    main()
