@@ -186,7 +186,9 @@ final line:
     through the stub: one batch, clouds against the host, the sky mask's
     confidences
 49. profile_trace: a SMALL chunk under ``utils/profiling.py:profile_trace``;
-    the Chrome trace names the bf16 bound forward kernel 12 times
+    the Chrome trace names the bf16 bound forward kernel 12 times, and holds
+    the port's ``model.inference`` and ``model.dpt`` spans with kernels
+    launched inside them
 50. main_conf_figures: ``cli/main_conf`` without ``--stats_only``: the PNGs
     where matplotlib imports, else an error naming matplotlib before the
     model runs, and nothing written (the case that ran is printed)
@@ -1193,7 +1195,9 @@ def _kernel_category(name: str) -> str:
 
 def _profile(phase: str, fn, **fields) -> None:
     """``torch.profiler`` over one warm call of ``fn`` (synchronised): wall,
-    device busy time, idle share and the busy time split by kind of kernel.
+    device busy time and the busy time split by kind of kernel (an idle share
+    is slambench's ``device.idle_share``: Σ self device time counts
+    overlapping streams twice).
     The profiler's own tracing of every host call stretches the wall time, and
     a host-bound call's time spreads from one call to the next, so five more
     warm calls are timed without it (``wall_ms_unprofiled``: their median)."""
@@ -1230,8 +1234,6 @@ def _profile(phase: str, fn, **fields) -> None:
     busy = sum(by_cat.values())
     emit(phase, **fields, wall_ms=wall_ms, wall_ms_unprofiled=unprofiled_ms,
          wall_ms_unprofiled_runs=unprofiled_runs, device_busy_ms=busy,
-         idle_share=(1 - busy / wall_ms) if busy else None,
-         idle_share_unprofiled=(1 - busy / unprofiled_ms) if busy else None,
          split_ms=by_cat, split_share={k: v / busy for k, v in by_cat.items()} if busy else {},
          top_kernels=sorted(top, reverse=True)[:15])
 
@@ -4501,7 +4503,9 @@ def phase_batch_viewer(path_launches: dict) -> None:
 def phase_profile_trace(path_launches: dict) -> None:
     """49. profile_trace: a SMALL chunk of 15 frames under
     ``utils/profiling.py:profile_trace``: the Chrome trace is written and
-    names the bf16 bound forward kernel (PROFILE_KERNEL), 12 launches."""
+    names the bf16 bound forward kernel (PROFILE_KERNEL), 12 launches; the
+    spans ``model.inference`` and ``model.dpt`` sit in it, each with kernels
+    whose launch the host issued inside it."""
     from da3slam_tpu_torch.utils.profiling import TRACE_FILE, profile_trace
 
     model, paths = _small_prediction(15)
@@ -4517,12 +4521,23 @@ def phase_profile_trace(path_launches: dict) -> None:
     flash = [e for e in kernels if PROFILE_KERNEL in e.get("name", "")]
     launches = path_launches["profile_trace"]
     expected = expected_launches(flash_attn_bound_fwd=12)
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    spans = {}  # the port's span -> kernels launched inside it
+    for e in events:
+        if e.get("cat") == "user_annotation" and e.get("name") in ("model.inference", "model.dpt"):
+            spans[e["name"]] = sum(
+                e["ts"] <= launch_ts.get(k.get("args", {}).get("correlation"), -1)
+                <= e["ts"] + e["dur"] for k in kernels)
     emit("profile_trace", trace=str(path), yielded=str(got),
          trace_bytes=path.stat().st_size if path.exists() else 0, kernel_events=len(kernels),
          flash_events=len(flash), flash_ms=sum(e.get("dur", 0) for e in flash) / 1e3,
-         kernel_launches=launches, expected_launches=expected)
+         kernel_launches=launches, expected_launches=expected, span_kernels=spans)
     if len(flash) != 12:
         fail(f"profile_trace: {len(flash)} {PROFILE_KERNEL} events in {path}, not 12")
+    if set(spans) != {"model.inference", "model.dpt"} or not all(spans.values()):
+        fail(f"profile_trace: the port's spans and their kernels: {spans}")
     if launches != expected:
         fail(f"profile_trace: launches {launches} != {expected}")
 

@@ -23,6 +23,12 @@ import numpy as np
 import torch
 
 from da3slam_tpu_torch.inout.images import decode_image
+from da3slam_tpu_torch.utils.profiling import span
+
+
+def _decode(path: str) -> np.ndarray:
+    with span("ingest.decode"):
+        return decode_image(path)
 
 
 def upload_pinned(frames, device: torch.device, stream: "torch.cuda.Stream"):
@@ -102,7 +108,7 @@ class ImagePrefetcher:
                 self._next = i + 1
                 self._pending.add(i)
                 path = self.paths[i]
-            frame = decode_image(path)
+            frame = _decode(path)
             with self._cond:
                 self._cache[path] = frame
                 self._pending.discard(i)
@@ -125,7 +131,7 @@ class ImagePrefetcher:
             ):
                 self._cond.wait(timeout=0.1)
                 frame = self._cache.get(path)
-        return frame if frame is not None else decode_image(path)
+        return frame if frame is not None else _decode(path)
 
     def _stage_chunk(self, pos: int):
         """Stack partition chunk ``pos`` (waiting on its decodes) and start its
@@ -171,6 +177,10 @@ class ImagePrefetcher:
         partition comes back as staged: on CUDA the device tensor whose
         upload began up to ``stage_ahead`` chunks ago, the current stream
         made to wait for that copy.  Any other batch is a numpy array."""
+        with span("ingest.get_batch", frames=len(paths)):
+            return self._get_batch(paths)
+
+    def _get_batch(self, paths: list[str]):
         key = tuple(paths)
         pos = self._stage_keys.get(key)
         if pos is None:

@@ -30,6 +30,7 @@ from da3slam_tpu_torch.ops.resize import (
     resize_normalize,
     upper_bound_shape,
 )
+from da3slam_tpu_torch.utils.profiling import nbytes, span
 
 
 @dataclasses.dataclass
@@ -87,7 +88,8 @@ def forward_fn(
     ray maps instead of the camera-token head."""
     N, H, W, _ = images.shape
     taps, final, grid = vit.encode(net, images, cfg, dtype)
-    depth, conf, rays = dpt.apply_dpt(net.depth_head, taps, grid, (H, W), cfg)
+    with span("model.dpt"):
+        depth, conf, rays = dpt.apply_dpt(net.depth_head, taps, grid, (H, W), cfg)
     extrinsics, intrinsics = camera.apply_camera_head(
         net.camera_head, final[:, 0, :], (H, W), ref_idx
     )
@@ -236,48 +238,52 @@ class DepthAnything3:
             raise ValueError(f"unsupported process_res_method {process_res_method!r}")
         if export_dir is not None and export_format not in ("mini_npz", "glb"):
             raise ValueError(f"unknown export_format {export_format!r}")
-        if isinstance(image, torch.Tensor):
-            raw = image if image.ndim == 4 else image[None]
-        else:
-            raw = torch.from_numpy(_load_images(image))
-        if self.device.type == "cuda" and raw.device.type == "cpu":
-            # pinned + non_blocking: the upload queues behind the previous
-            # chunk's work instead of making the host wait for it
-            raw = raw.pin_memory().to(self.device, non_blocking=True)
-        raw = raw.to(self.device)
-        h, w = raw.shape[1], raw.shape[2]
-        th, tw = upper_bound_shape(h, w, process_res, self.cfg.patch_size)
-        norm = resize_normalize(raw, (th, tw))
+        with span("model.inference") as attrs:
+            if isinstance(image, torch.Tensor):
+                raw = image if image.ndim == 4 else image[None]
+            else:
+                raw = torch.from_numpy(_load_images(image))
+            attrs["views"] = raw.shape[0]
+            if self.device.type == "cuda" and raw.device.type == "cpu":
+                # pinned + non_blocking: the upload queues behind the previous
+                # chunk's work instead of making the host wait for it
+                with span("model.upload", bytes=nbytes(raw)):
+                    raw = raw.pin_memory().to(self.device, non_blocking=True)
+            raw = raw.to(self.device)
+            h, w = raw.shape[1], raw.shape[2]
+            th, tw = upper_bound_shape(h, w, process_res, self.cfg.patch_size)
+            norm = resize_normalize(raw, (th, tw))
 
-        ref_idx = camera.ref_view_index(raw.shape[0], ref_view_strategy)
-        out = forward_fn(self.net, norm, self.cfg, ref_idx, self.dtype, use_ray_pose)
+            ref_idx = camera.ref_view_index(raw.shape[0], ref_view_strategy)
+            out = forward_fn(self.net, norm, self.cfg, ref_idx, self.dtype, use_ray_pose)
 
-        ext = out["extrinsics"]
-        depth = out["depth"]
-        if extrinsics is not None:
-            # conditioning adopts the provided poses; with scale alignment the
-            # depth is rescaled so its metric matches their translations
-            ext_in = torch.as_tensor(np.asarray(extrinsics), dtype=torch.float32,
-                                     device=self.device)
-            if align_to_input_ext_scale:
-                depth = depth * _pose_scale_ratio(ext_in, ext)
-            ext = ext_in
+            ext = out["extrinsics"]
+            depth = out["depth"]
+            if extrinsics is not None:
+                # conditioning adopts the provided poses; with scale alignment the
+                # depth is rescaled so its metric matches their translations
+                ext_in = torch.as_tensor(np.asarray(extrinsics), dtype=torch.float32,
+                                         device=self.device)
+                if align_to_input_ext_scale:
+                    depth = depth * _pose_scale_ratio(ext_in, ext)
+                ext = ext_in
 
-        fields = {
-            "processed_images": denormalize_to_uint8(norm),
-            "depth": depth.float(),
-            "conf": out["conf"].float(),
-            "extrinsics": ext.float(),
-            "intrinsics": out["intrinsics"].float(),
-            "frame_desc": out["frame_desc"].float(),
-        }
-        if not keep_on_device:
-            fields = {k: v.cpu().numpy() for k, v in fields.items()}
-        pred = Prediction(**fields)
-        if export_dir is not None:
-            _export({k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
-                     for k, v in fields.items()}, Path(export_dir), export_format)
-        return pred
+            fields = {
+                "processed_images": denormalize_to_uint8(norm),
+                "depth": depth.float(),
+                "conf": out["conf"].float(),
+                "extrinsics": ext.float(),
+                "intrinsics": out["intrinsics"].float(),
+                "frame_desc": out["frame_desc"].float(),
+            }
+            if not keep_on_device:
+                with span("model.fetch", bytes=nbytes(*fields.values())):
+                    fields = {k: v.cpu().numpy() for k, v in fields.items()}
+            pred = Prediction(**fields)
+            if export_dir is not None:
+                _export({k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+                         for k, v in fields.items()}, Path(export_dir), export_format)
+            return pred
 
 
 def _ffn_from_tensors(cfg: ModelConfig, sd: dict) -> ModelConfig:

@@ -27,6 +27,7 @@ import torch
 
 from da3slam_tpu_torch.core.geometry import median
 from da3slam_tpu_torch.models.config import PRESETS, ModelConfig, resolve_nested_preset
+from da3slam_tpu_torch.utils.profiling import span
 
 
 def _nanmedian(x: torch.Tensor) -> torch.Tensor:
@@ -152,7 +153,12 @@ class DepthAnything3Nested:
         ``metric_scale`` records; with input ``extrinsics=`` the input poses
         define the scale and the rescale is skipped.  ``export_dir`` goes to
         the any-view inference, so its ``prediction.npz`` holds the depth
-        before the rescale, as in the JAX package."""
+        before the rescale, as in the JAX package.  Both submodels' spans
+        sit inside this call's ``model.nested`` span."""
+        with span("model.nested"):
+            return self._inference(image, ref_view_strategy, **kwargs)
+
+    def _inference(self, image, ref_view_strategy: str, **kwargs):
         from da3slam_tpu_torch.models import camera
         from da3slam_tpu_torch.models.da3 import _load_images
 

@@ -14,8 +14,11 @@ from __future__ import annotations
 import torch
 
 from da3slam_tpu_torch.ops.flash_attention import flash_attention
+from da3slam_tpu_torch.utils.profiling import span
 
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Scaled dot-product attention on ``[B, S, H, Dh]``; returns ``[B, S, H, Dh]``."""
-    return flash_attention(q, k, v, stable=False)
+    B, S, H, D = q.shape
+    with span("model.attention", B=B, S=S, H=H, D=D):
+        return flash_attention(q, k, v, stable=False)

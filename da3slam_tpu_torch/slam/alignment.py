@@ -29,6 +29,7 @@ from da3slam_tpu_torch.core.transforms import (
 )
 from da3slam_tpu_torch.ops.icp import icp_point_to_point
 from da3slam_tpu_torch.ops.registration import irls_sim3, weighted_umeyama
+from da3slam_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,13 +126,14 @@ def align_chunk_single_overlap(
     tgt_valid = prev_depth > 1e-6
 
     if config.method == "icp":
-        icp = icp_point_to_point(
-            src_pts, tgt_map, prev_K,
-            src_valid=src_valid, tgt_valid=tgt_valid,
-            threshold=config.icp_threshold,
-            max_iterations=config.icp_max_iterations,
-            with_scale=config.with_scale,
-        )
+        with span("align.icp", iterations=config.icp_max_iterations):
+            icp = icp_point_to_point(
+                src_pts, tgt_map, prev_K,
+                src_valid=src_valid, tgt_valid=tgt_valid,
+                threshold=config.icp_threshold,
+                max_iterations=config.icp_max_iterations,
+                with_scale=config.with_scale,
+            )
         T, fitness, rmse = icp.transform, icp.fitness, icp.inlier_rmse
     elif config.method == "umeyama":
         w = (src_valid & tgt_valid[::st, ::st].reshape(-1)).to(torch.float32)

@@ -34,6 +34,7 @@ device→host transfer (``SLAMViewer.add_frames``).
 
 from __future__ import annotations
 
+import itertools
 import time
 from collections import deque
 from typing import Any, Dict, List, Optional
@@ -44,7 +45,7 @@ import torch
 from da3slam_tpu_torch.core.transforms import se3_inverse, se3_to_4x4
 from da3slam_tpu_torch.inout.images import extract_keyframes, load_image_paths
 from da3slam_tpu_torch.slam.alignment import AlignmentConfig, align_chunk_single_overlap
-from da3slam_tpu_torch.utils.profiling import StageTimer
+from da3slam_tpu_torch.utils.profiling import StageTimer, nbytes, span
 
 
 def fetch_packed(tensors: List[torch.Tensor]) -> List[np.ndarray]:
@@ -57,9 +58,13 @@ def fetch_packed(tensors: List[torch.Tensor]) -> List[np.ndarray]:
 
 
 class SLAMSolver:
+    # each solver's number: a chunk's spans carry (serial, chunk index)
+    _serials = itertools.count()
+
     def __init__(self, image_dir: str, config: dict, model: Any = None, viewer: Any = "auto",
                  device: str | torch.device = "cuda"):
         self.config = config
+        self.serial = next(SLAMSolver._serials)
         self.device = torch.device(device)
         model_cfg = config.get("Model", {})
         self.chunk_size = model_cfg.get("chunk_size", 15)
@@ -174,18 +179,17 @@ class SLAMSolver:
         for the re-anchored tail window."""
         if anchor_idx is None:
             anchor_idx = self.overlap_size - 1
-        out = align_chunk_single_overlap(
-            prev_depth=self._dev(prev["depth"][-1]),
-            prev_conf=self._dev(prev["conf"][-1]),
-            prev_K=self._dev(prev["intrinsics"][-1]),
-            cur_depth=self._dev(cur["depth"]),
-            cur_conf=self._dev(cur["conf"]),
-            cur_K=self._dev(cur["intrinsics"]),
-            cur_extrinsics=self._dev(cur["extrinsics"]),
-            prev_overlap_global=self._dev(self.prev_overlap_aligned_3x4),
-            config=self.align_config,
-            anchor_idx=anchor_idx,
-        )
+        host = {"prev_depth": prev["depth"][-1], "prev_conf": prev["conf"][-1],
+                "prev_K": prev["intrinsics"][-1], "cur_depth": cur["depth"],
+                "cur_conf": cur["conf"], "cur_K": cur["intrinsics"],
+                "cur_extrinsics": cur["extrinsics"],
+                "prev_overlap_global": self.prev_overlap_aligned_3x4}
+        with span("align.upload") as attrs:
+            inputs = {k: self._dev(a) for k, a in host.items()}
+            # what crossed: the inputs that were not already device tensors
+            attrs["bytes"] = nbytes(*(t for k, t in inputs.items() if t is not host[k]))
+        out = align_chunk_single_overlap(**inputs, config=self.align_config,
+                                         anchor_idx=anchor_idx)
         if self.device_resident:
             cur["depth"] = out.depth_scaled
             self.prev_overlap_aligned_3x4 = out.prev_overlap_for_next
@@ -199,23 +203,28 @@ class SLAMSolver:
             # chunk: one packed transfer
             fd = cur.get("frame_desc")
             extra = [fd] if isinstance(fd, torch.Tensor) else []
-            eg, s, R, t, fitness, rmse, *fd = fetch_packed(
-                [out.extrinsics_global, out.depth_scale, out.transform.R, out.transform.t,
-                 out.fitness, out.inlier_rmse, *extra])
+            fetched = [out.extrinsics_global, out.depth_scale, out.transform.R, out.transform.t,
+                       out.fitness, out.inlier_rmse, *extra]
+            with span("align.fetch", bytes=8 * sum(t.numel() for t in fetched)):  # one f64 buffer
+                eg, s, R, t, fitness, rmse, *fd = fetch_packed(fetched)
             cur["extrinsics_global"] = eg
             if fd:
                 cur["frame_desc"] = fd[0]
             return float(s), R, t, float(fitness), float(rmse)
-        cur["depth"] = out.depth_scaled.cpu().numpy()
-        cur["extrinsics_global"] = out.extrinsics_global.cpu().numpy()
-        self.prev_overlap_aligned_3x4 = out.prev_overlap_for_next.cpu().numpy()
-        return (
-            float(out.depth_scale),
-            out.transform.R.cpu().numpy(),
-            out.transform.t.cpu().numpy(),
-            float(out.fitness),
-            float(out.inlier_rmse),
-        )
+        with span("align.fetch", bytes=nbytes(
+                out.depth_scaled, out.extrinsics_global, out.prev_overlap_for_next,
+                out.depth_scale, out.transform.R, out.transform.t, out.fitness,
+                out.inlier_rmse)):
+            cur["depth"] = out.depth_scaled.cpu().numpy()
+            cur["extrinsics_global"] = out.extrinsics_global.cpu().numpy()
+            self.prev_overlap_aligned_3x4 = out.prev_overlap_for_next.cpu().numpy()
+            return (
+                float(out.depth_scale),
+                out.transform.R.cpu().numpy(),
+                out.transform.t.cpu().numpy(),
+                float(out.fitness),
+                float(out.inlier_rmse),
+            )
 
     def _report(self, tag: str, s, fitness, rmse) -> None:
         if isinstance(s, float):
@@ -282,38 +291,39 @@ class SLAMSolver:
         if not self.should_run_chunk_prediction():
             return
 
-        chunk_paths = self.load_chunk_image_paths()
-        with self.timer("inference"):
-            cur = self.run_single_chunk_prediction(chunk_paths)
+        with span("chunk", chunk=(self.serial, self.chunk_count)):
+            chunk_paths = self.load_chunk_image_paths()
+            with self.timer("inference"):
+                cur = self.run_single_chunk_prediction(chunk_paths)
 
-        depth_scale = 1.0
-        if self.chunk_count == 0:
-            self._first_chunk_globals(cur)
-        else:
-            with self.timer("align"):
-                s, _R, _t, fitness, rmse = self.process_chunk_alignment(
-                    self.prev_chunk_prediction, cur
-                )
-            self._report(f"chunk {self.chunk_count}", s, fitness, rmse)
-            if isinstance(s, float):  # device scalars: no loop stage consumes them
-                depth_scale = s
+            depth_scale = 1.0
+            if self.chunk_count == 0:
+                self._first_chunk_globals(cur)
+            else:
+                with self.timer("align"):
+                    s, _R, _t, fitness, rmse = self.process_chunk_alignment(
+                        self.prev_chunk_prediction, cur
+                    )
+                self._report(f"chunk {self.chunk_count}", s, fitness, rmse)
+                if isinstance(s, float):  # device scalars: no loop stage consumes them
+                    depth_scale = s
 
-        self.results.append({
-            "chunk_idx": cur["chunk_idx"],
-            "image_paths": cur["image_paths"],
-            "extrinsics_global": cur["extrinsics_global"],
-            "intrinsics": cur["intrinsics"],
-            # leading frames duplicated from the previous chunk
-            "dedup_skip": 0 if self.chunk_count == 0 else self.overlap_size,
-        })
-        if self.loop_closer is not None:
-            with self.timer("loop"):
-                self._loop_stage(cur, self.results[-1]["dedup_skip"], depth_scale)
-        with self.timer("viewer"):
-            self.update_viewer(cur, start=self.results[-1]["dedup_skip"])
-        self.prev_chunk_prediction = cur
-        self.update_buffer_after_chunk_processed()
-        self.chunk_count += 1
+            self.results.append({
+                "chunk_idx": cur["chunk_idx"],
+                "image_paths": cur["image_paths"],
+                "extrinsics_global": cur["extrinsics_global"],
+                "intrinsics": cur["intrinsics"],
+                # leading frames duplicated from the previous chunk
+                "dedup_skip": 0 if self.chunk_count == 0 else self.overlap_size,
+            })
+            if self.loop_closer is not None:
+                with self.timer("loop"):
+                    self._loop_stage(cur, self.results[-1]["dedup_skip"], depth_scale)
+            with self.timer("viewer"):
+                self.update_viewer(cur, start=self.results[-1]["dedup_skip"])
+            self.prev_chunk_prediction = cur
+            self.update_buffer_after_chunk_processed()
+            self.chunk_count += 1
         if self.sleep_between_chunk:
             time.sleep(self.sleep_between_chunk)
 
@@ -327,43 +337,44 @@ class SLAMSolver:
         if n_new <= 0:
             return
 
-        depth_scale = 1.0
-        if self.chunk_count == 0:
-            # fewer frames than one chunk: run them all as chunk 0
-            chunk_paths = list(image_paths)
-            with self.timer("inference"):
-                cur = self.run_single_chunk_prediction(chunk_paths)
-            self._first_chunk_globals(cur)
-            dedup_skip = 0
-        else:
-            # the previous chunk's last frame sits at index chunk_size - 1 - n_new
-            chunk_paths = list(image_paths[-self.chunk_size:])
-            with self.timer("inference"):
-                cur = self.run_single_chunk_prediction(chunk_paths)
-            with self.timer("align"):
-                s, _R, _t, fitness, rmse = self.process_chunk_alignment(
-                    self.prev_chunk_prediction, cur, anchor_idx=self.chunk_size - 1 - n_new
-                )
-            self._report(f"tail chunk ({n_new} new frames)", s, fitness, rmse)
-            if isinstance(s, float):
-                depth_scale = s
-            dedup_skip = self.chunk_size - n_new
+        with span("chunk", chunk=(self.serial, self.chunk_count)):
+            depth_scale = 1.0
+            if self.chunk_count == 0:
+                # fewer frames than one chunk: run them all as chunk 0
+                chunk_paths = list(image_paths)
+                with self.timer("inference"):
+                    cur = self.run_single_chunk_prediction(chunk_paths)
+                self._first_chunk_globals(cur)
+                dedup_skip = 0
+            else:
+                # the previous chunk's last frame sits at index chunk_size - 1 - n_new
+                chunk_paths = list(image_paths[-self.chunk_size:])
+                with self.timer("inference"):
+                    cur = self.run_single_chunk_prediction(chunk_paths)
+                with self.timer("align"):
+                    s, _R, _t, fitness, rmse = self.process_chunk_alignment(
+                        self.prev_chunk_prediction, cur, anchor_idx=self.chunk_size - 1 - n_new
+                    )
+                self._report(f"tail chunk ({n_new} new frames)", s, fitness, rmse)
+                if isinstance(s, float):
+                    depth_scale = s
+                dedup_skip = self.chunk_size - n_new
 
-        self.results.append({
-            "chunk_idx": self.chunk_count,
-            "image_paths": chunk_paths,
-            "extrinsics_global": cur["extrinsics_global"],
-            "intrinsics": cur["intrinsics"],
-            "dedup_skip": dedup_skip,
-        })
-        if self.loop_closer is not None:
-            with self.timer("loop"):
-                self._loop_stage(cur, dedup_skip, depth_scale)
-        with self.timer("viewer"):
-            self.update_viewer(cur, start=dedup_skip)
-        self.prev_chunk_prediction = cur
-        self.frame_buffer.clear()
-        self.chunk_count += 1
+            self.results.append({
+                "chunk_idx": self.chunk_count,
+                "image_paths": chunk_paths,
+                "extrinsics_global": cur["extrinsics_global"],
+                "intrinsics": cur["intrinsics"],
+                "dedup_skip": dedup_skip,
+            })
+            if self.loop_closer is not None:
+                with self.timer("loop"):
+                    self._loop_stage(cur, dedup_skip, depth_scale)
+            with self.timer("viewer"):
+                self.update_viewer(cur, start=dedup_skip)
+            self.prev_chunk_prediction = cur
+            self.frame_buffer.clear()
+            self.chunk_count += 1
 
     def _materialize(self) -> None:
         """End of run (device-resident mode): every deferred stat and every
@@ -415,7 +426,8 @@ class SLAMSolver:
                 self._prefetcher = None
         print("SLAM process completed")
         if self.timer.totals:
-            print("per-stage timing:\n" + self.timer.report())
+            print("per-stage host time (enqueue and waits, not device time):\n"
+                  + self.timer.report())
 
     # -- export ------------------------------------------------------------
     def trajectory(self) -> tuple[np.ndarray, np.ndarray]:

@@ -31,6 +31,7 @@ import torch
 
 from da3slam_tpu_torch.core.geometry import backproject_depth
 from da3slam_tpu_torch.core.transforms import rotmat_to_quat, se3_inverse
+from da3slam_tpu_torch.utils.profiling import span
 
 # every frustum shows its frame at this stride
 THUMB_STRIDE = 4
@@ -157,9 +158,10 @@ class SLAMViewer:
         # decided on each whole image's max, applied after the fetch
         peak = (imgs.reshape(n, -1).amax(-1).to(f32) if chw
                 else torch.zeros(n, dtype=f32, device=self.device))
-        host = fetch_packed([pts_s, imgs[:, ::s, ::s].reshape(n, -1, 3),
-                             conf[:, ::s, ::s].reshape(n, -1), valid, quat, c2w[..., :3, 3],
-                             imgs[:, ::THUMB_STRIDE, ::THUMB_STRIDE], K, peak])
+        fetched = [pts_s, imgs[:, ::s, ::s].reshape(n, -1, 3), conf[:, ::s, ::s].reshape(n, -1),
+                   valid, quat, c2w[..., :3, 3], imgs[:, ::THUMB_STRIDE, ::THUMB_STRIDE], K, peak]
+        with span("viewer.fetch", bytes=8 * sum(t.numel() for t in fetched)):  # one f64 buffer
+            host = fetch_packed(fetched)
         pts_s, cols_s, conf_s, valid, quat, pos, thumb, K, peak = host
         frames = []
         for i in range(n):

@@ -1,0 +1,4 @@
+"""model.dpt_device_ms_per_chunk: device time launched inside model.dpt in the slice, a chunk."""
+from slambench.lib.program_spans import device_ms_per_chunk
+
+read = device_ms_per_chunk("model.dpt")
