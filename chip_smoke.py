@@ -196,6 +196,10 @@ final line:
     ``write_ply`` / ``read_ply`` native against numpy at 11,430,720 points
     (bytes and arrays equal, seconds), ``voxel_downsample`` and the 3DGS
     writer against their numpy paths
+52. icp_graph: ICP at the cells' shapes (504², stride 4, 12 iterations) as a
+    captured CUDA graph against its eager body, bit for bit, with and without
+    scale; the capture's wall time, a replay's host µs and device ms beside
+    the eager body's, and no host wait in a replay
 
 The forward phase (3) also holds the bound forward at that joint length, at
 main_mesh's chunk-8 cross length (S = 10408, also sp's ring hop), at the
@@ -4604,6 +4608,104 @@ def _timed(fn) -> tuple[float, object]:
     return time.perf_counter() - t0, out
 
 
+# ICP at the benchmark cells' shapes: a 504² target map, the source strided
+# by 4, 12 iterations, threshold 0.1 (slambench/workloads/*.json)
+ICP_HW, ICP_STRIDE, ICP_KW = 504, 4, dict(threshold=0.1, max_iterations=12)
+ICP_REPS = 50
+
+
+def icp_overlap_inputs(i: int) -> tuple:
+    """ICP's inputs as the alignment makes them for the overlap of frames
+    ``i`` and ``i + 1`` of the synthetic corner room at ICP_HW², on the card:
+    the source cloud strided by ICP_STRIDE, the target's full point map, K
+    and both validity masks."""
+    from da3slam_tpu_torch.core.geometry import backproject_depth
+    from da3slam_tpu_torch.utils.synthetic import default_intrinsics, make_trajectory, render_depth
+
+    hw = (ICP_HW, ICP_HW)
+    K = default_intrinsics(hw)
+    poses = make_trajectory(i + 2)
+    prev, cur = (torch.from_numpy(render_depth(E, K, hw)).cuda() for E in poses[i:i + 2])
+    Kt = torch.from_numpy(K).cuda()
+    st = ICP_STRIDE
+    src = backproject_depth(cur, Kt)[::st, ::st].reshape(-1, 3)
+    return (src, backproject_depth(prev, Kt), Kt, cur[::st, ::st].reshape(-1) > 1e-6,
+            prev > 1e-6)
+
+
+def phase_icp_graph() -> None:
+    """52. icp_graph: ``ops/icp.py:run_icp`` on CUDA inputs at the cells'
+    shapes (ICP_HW, ICP_STRIDE, ICP_KW), with and without scale: the captured
+    graph's transform, fitness and RMSE against the eager body on three
+    overlaps, bit for bit, each read after all three replays; the capture's
+    wall time; a replay's host µs (copies in, the launch, clones out) and its
+    device ms (CUDA events), beside the eager body's; a replay under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a host wait raises)."""
+    from da3slam_tpu_torch.core.transforms import highest_precision
+    from da3slam_tpu_torch.ops import icp
+
+    cases = [icp_overlap_inputs(i) for i in (3, 10, 17)]
+    saved = icp.GRAPHS
+    rows = []
+    try:
+        for with_scale in (False, True):
+            icp.GRAPHS = graphs = icp.ICPGraphs()
+            kw = dict(ICP_KW, with_scale=with_scale)
+
+            def eager(args):
+                with highest_precision():
+                    return icp._icp(*args, kw["threshold"], kw["max_iterations"], with_scale)
+
+            def flat(res):
+                return [*res.transform, res.fitness, res.inlier_rmse]
+
+            refs = [flat(eager(args)) for args in cases]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            first, mode = icp.run_icp(*cases[0], **kw)
+            torch.cuda.synchronize()
+            capture_ms = (time.perf_counter() - t0) * 1e3
+            if mode != "capture":
+                fail(f"icp_graph: the first call ran {mode!r}, not a capture")
+            outs = [first] + [icp.run_icp(*args, **kw) for args in cases[1:]]
+            modes = [mode] + [m for _, m in outs[1:]]
+            outs = [flat(outs[0])] + [flat(r) for r, _ in outs[1:]]
+            unequal = [[i, j] for i, (got, ref) in enumerate(zip(outs, refs))
+                       for j, (a, b) in enumerate(zip(got, ref)) if not torch.equal(a, b)]
+            if unequal or graphs.captures != 1 or modes != ["capture", "replay", "replay"]:
+                fail(f"icp_graph (with_scale={with_scale}): unequal [case, output] {unequal}, "
+                     f"{graphs.captures} captures, modes {modes}")
+
+            def host_us(fn):
+                fn()
+                torch.cuda.synchronize()
+                times = []
+                for _ in range(ICP_REPS):
+                    t0 = time.perf_counter()
+                    fn()
+                    times.append((time.perf_counter() - t0) * 1e6)
+                    torch.cuda.synchronize()
+                return float(np.median(times))
+
+            replay = lambda: icp.run_icp(*cases[0], **kw)  # noqa: E731
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")  # a host wait in a replay raises
+            try:
+                replay()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            rows.append({
+                "with_scale": with_scale, "bit_equal": True, "cases": len(cases),
+                "points": int(cases[0][0].shape[0]), "capture_ms": capture_ms,
+                "replay_host_us": host_us(replay), "replay_device_ms": cuda_ms(replay, ICP_REPS),
+                "eager_host_us": host_us(lambda: eager(cases[0])),
+                "eager_device_ms": cuda_ms(lambda: eager(cases[0]), ICP_REPS),
+                "fitness": float(first.fitness)})
+    finally:
+        icp.GRAPHS = saved
+    emit("icp_graph", hw=[ICP_HW, ICP_HW], stride=ICP_STRIDE, **ICP_KW, rows=rows)
+
+
 def phase_native() -> None:
     """51. native: the port's C++ point-cloud library built with g++ (timed
     into a scratch path) and loaded; at LARGE main_align's fused-cloud size
@@ -4781,6 +4883,7 @@ def main() -> None:
     phase_profile_trace(path_launches)
     phase_main_conf_figures(path_launches)
     phase_native()
+    phase_icp_graph()
     small_ref = phase_mesh(path_launches)
     phase_mesh_nccl(path_launches, small_ref)
     phase_mesh_pp_giant(path_launches)

@@ -6,10 +6,19 @@ the target camera and reading the target's point map at that pixel
 (KinectFusion-style).  Each iteration: associate (project + one gather) →
 Huber-weighted point-to-plane Gauss-Newton step.  Fixed iteration count, no
 data-dependent control flow, so nothing synchronises with the host.
+
+On CUDA inputs that fixed shape lets the whole body run as one captured CUDA
+graph: ``run_icp`` captures it once per ``GraphKey`` (device, shapes, dtypes,
+the static arguments) in a cache of the process and replays it after, so a
+call costs a few copies and one graph launch in place of ~2,500 eager
+launches.  The replay runs the captured kernels in the captured order, so its
+result is the eager body's bit for bit.  CPU inputs run the body eagerly.
 """
 
 from __future__ import annotations
 
+import threading
+from collections import OrderedDict
 from typing import NamedTuple
 
 import torch
@@ -63,22 +72,17 @@ def bilinear_gather(point_map: torch.Tensor, uv: torch.Tensor) -> tuple[torch.Te
     return top * (1 - fv) + bot * fv, in_bounds
 
 
-@highest_precision()
-def icp_point_to_point(
+def _icp(
     src_points: torch.Tensor,
     tgt_point_map: torch.Tensor,
     tgt_K: torch.Tensor,
-    src_valid: torch.Tensor | None = None,
-    tgt_valid: torch.Tensor | None = None,
-    threshold: float = 0.1,
-    max_iterations: int = 50,
-    with_scale: bool = False,
+    src_valid: torch.Tensor | None,
+    tgt_valid: torch.Tensor | None,
+    threshold: float,
+    max_iterations: int,
+    with_scale: bool,
 ) -> ICPResult:
-    """Align ``src_points`` ``[N, 3]`` onto the cloud behind ``tgt_point_map``
-    ``[H, W, 3]`` (camera coords, intrinsics ``tgt_K``), from the identity.
-
-    Returns ``ICPResult`` with ``transform`` s.t. ``tgt ≈ s R src + t``.
-    """
+    """The arithmetic of ``icp_point_to_point``, run eagerly or captured."""
     dev = src_points.device
     f32 = torch.float32
     n = src_points.shape[0]
@@ -165,3 +169,138 @@ def icp_point_to_point(
     fitness = n_inlier / n_src
     inlier_rmse = torch.sqrt(torch.sum(w * dist**2) / n_inlier.clamp_min(1.0))
     return ICPResult(T, fitness, inlier_rmse)
+
+
+# captured bodies kept at once, the least recently used dropped first: a
+# process aligns at one shape a frame size, so a few cover callers that mix
+# frame sizes or devices
+GRAPH_ENTRIES = 4
+
+
+class GraphKey(NamedTuple):
+    """What changes the captured work: a call at another key captures anew."""
+
+    device: int
+    src_shape: tuple[int, ...]
+    tgt_shape: tuple[int, ...]
+    dtypes: tuple[torch.dtype, ...]  # of src_points, tgt_point_map, tgt_K
+    threshold: float
+    max_iterations: int
+    with_scale: bool
+    src_valid: bool  # given, or made by the body
+    tgt_valid: bool
+
+
+def graph_key(src_points: torch.Tensor, tgt_point_map: torch.Tensor, tgt_K: torch.Tensor,
+              src_valid: torch.Tensor | None, tgt_valid: torch.Tensor | None,
+              threshold: float, max_iterations: int, with_scale: bool) -> GraphKey:
+    return GraphKey(src_points.device.index, tuple(src_points.shape), tuple(tgt_point_map.shape),
+                    (src_points.dtype, tgt_point_map.dtype, tgt_K.dtype), float(threshold),
+                    int(max_iterations), bool(with_scale), src_valid is not None,
+                    tgt_valid is not None)
+
+
+class _Graph(NamedTuple):
+    graph: torch.cuda.CUDAGraph
+    inputs: tuple[torch.Tensor | None, ...]  # the static copies each replay reads
+    result: ICPResult  # the static outputs each replay overwrites
+
+
+class ICPGraphs:
+    """The process's captured ICP bodies by ``GraphKey``, at most ``entries``
+    of them (least recently used first)."""
+
+    def __init__(self, entries: int = GRAPH_ENTRIES):
+        self.entries = entries
+        self.graphs: OrderedDict[GraphKey, _Graph] = OrderedDict()
+        self.captures = 0  # bodies captured in all, evicted ones included
+        self._lock = threading.Lock()
+
+    def __call__(self, src_points, tgt_point_map, tgt_K, src_valid, tgt_valid, threshold,
+                 max_iterations, with_scale) -> tuple[ICPResult, str]:
+        """``_icp`` on CUDA inputs by replaying the graph captured at their
+        ``graph_key``, captured first if there is none.  Returns the result,
+        cloned out of the graph's buffers (the next replay overwrites them),
+        and "capture" or "replay"."""
+        tensors = (src_points, tgt_point_map, tgt_K, src_valid, tgt_valid)
+        statics = (threshold, max_iterations, with_scale)
+        key = graph_key(*tensors, *statics)
+        with self._lock:
+            g = self.graphs.get(key)
+            if g is None:
+                g, mode = self._capture(tensors, statics), "capture"
+                self.graphs[key] = g
+                if len(self.graphs) > self.entries:
+                    self.graphs.popitem(last=False)
+            else:
+                mode = "replay"
+                self.graphs.move_to_end(key)
+                for static, x in zip(g.inputs, tensors):
+                    if static is not None:
+                        static.copy_(x)
+            g.graph.replay()
+            T, fitness, rmse = g.result
+            return ICPResult(Sim3(T.s.clone(), T.R.clone(), T.t.clone()), fitness.clone(),
+                             rmse.clone()), mode
+
+    def _capture(self, tensors: tuple, statics: tuple) -> _Graph:
+        self.captures += 1
+        dev = tensors[0].device
+        inputs = tuple(None if x is None else x.to(dev, copy=True) for x in tensors)
+        with torch.cuda.device(dev):
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            # one eager run on the capturing stream first: it makes that
+            # stream's cuBLAS and cuSOLVER handles and workspaces, which a
+            # capture may not
+            with torch.cuda.stream(side):
+                _icp(*inputs, *statics)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            # thread_local: the frame prefetcher's threads may call the CUDA
+            # runtime meanwhile; only this thread must not
+            with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+                result = _icp(*inputs, *statics)
+        return _Graph(graph, inputs, result)
+
+
+GRAPHS = ICPGraphs()
+
+
+@highest_precision()
+def run_icp(
+    src_points: torch.Tensor,
+    tgt_point_map: torch.Tensor,
+    tgt_K: torch.Tensor,
+    src_valid: torch.Tensor | None = None,
+    tgt_valid: torch.Tensor | None = None,
+    threshold: float = 0.1,
+    max_iterations: int = 50,
+    with_scale: bool = False,
+) -> tuple[ICPResult, str]:
+    """``icp_point_to_point``, and how it ran: "eager" (CPU inputs), or, on
+    CUDA inputs, "capture" (the first call at its ``GraphKey``) or "replay"."""
+    args = (src_points, tgt_point_map, tgt_K, src_valid, tgt_valid, threshold, max_iterations,
+            with_scale)
+    if src_points.device.type != "cuda":
+        return _icp(*args), "eager"
+    return GRAPHS(*args)
+
+
+def icp_point_to_point(
+    src_points: torch.Tensor,
+    tgt_point_map: torch.Tensor,
+    tgt_K: torch.Tensor,
+    src_valid: torch.Tensor | None = None,
+    tgt_valid: torch.Tensor | None = None,
+    threshold: float = 0.1,
+    max_iterations: int = 50,
+    with_scale: bool = False,
+) -> ICPResult:
+    """Align ``src_points`` ``[N, 3]`` onto the cloud behind ``tgt_point_map``
+    ``[H, W, 3]`` (camera coords, intrinsics ``tgt_K``), from the identity.
+
+    Returns ``ICPResult`` with ``transform`` s.t. ``tgt ≈ s R src + t``.
+    """
+    return run_icp(src_points, tgt_point_map, tgt_K, src_valid, tgt_valid, threshold,
+                   max_iterations, with_scale)[0]

@@ -27,7 +27,7 @@ from da3slam_tpu_torch.core.transforms import (
     se3_inverse,
     sim3_inverse,
 )
-from da3slam_tpu_torch.ops.icp import icp_point_to_point
+from da3slam_tpu_torch.ops.icp import run_icp
 from da3slam_tpu_torch.ops.registration import irls_sim3, weighted_umeyama
 from da3slam_tpu_torch.utils.profiling import span
 
@@ -126,8 +126,8 @@ def align_chunk_single_overlap(
     tgt_valid = prev_depth > 1e-6
 
     if config.method == "icp":
-        with span("align.icp", iterations=config.icp_max_iterations):
-            icp = icp_point_to_point(
+        with span("align.icp", iterations=config.icp_max_iterations) as attrs:
+            icp, attrs["graph"] = run_icp(
                 src_pts, tgt_map, prev_K,
                 src_valid=src_valid, tgt_valid=tgt_valid,
                 threshold=config.icp_threshold,

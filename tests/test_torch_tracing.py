@@ -94,7 +94,7 @@ def test_a_two_chunk_run_is_one_tree_a_chunk(two_chunk_run):
         assert ((solver.serial, 0), name) not in names
         assert ((solver.serial, 1), name) in names
     icp = [r for r in recs if r.name == "align.icp"]
-    assert icp[0].attrs == {"iterations": 12}
+    assert icp[0].attrs == {"iterations": 12, "graph": "eager"}
     # tiny: 4 blocks, one attention call each
     assert sum(r.name == "model.attention" and r.chunk == (solver.serial, 0) for r in recs) == 4
     att = next(r for r in recs if r.name == "model.attention")
