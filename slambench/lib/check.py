@@ -1,10 +1,11 @@
 """The comparison that decides ``correct``.
 
 After the window, for a sample of the chunks it completed (drawn from the
-seed before it), the plain reference (``slambench/reference``: float32
-arithmetic with TF32 off, activations stored in the configuration's dtype
-where the port stores them) recomputes from the same frames and the same
-weights:
+seed before it), the plain reference of the configuration's kind
+(``kinds/<kind>.py:reference_forward``; for ``da3`` and ``nested``
+``slambench/reference``: float32 arithmetic with TF32 off, activations
+stored in the configuration's dtype where the port stores them) recomputes
+from the same frames and the same weights:
 
 - the model's outputs: ``depth_rel``, ``conf_rel`` and ``desc_rel`` (relative
   L2 over the chunk of depth, confidence and the retrieval descriptors),
@@ -101,11 +102,10 @@ def compare(run, built, device, control: str | None = None) -> dict:
         raw = torch.as_tensor(np.stack(cap.frames), device=device)
         _tf32(False)
         with torch.no_grad():
-            ref = reference_forward(built.state_dicts, built.ref_cfgs, raw, res, built.act)
+            ref = reference_forward(built, raw, res, built.act)
             pred = cap.pred
             if control == "fp8":
-                pred = _as_pred(reference_forward(built.state_dicts, built.ref_cfgs, raw, res,
-                                                  torch.float8_e4m3fn))
+                pred = _as_pred(reference_forward(built, raw, res, torch.float8_e4m3fn))
         gaps = model_gaps(pred, ref)
         gaps["align_gap"] = align_gap(cap, cell.settings["solver"], device, control == "tf32-align")
         for name, v in gaps.items():

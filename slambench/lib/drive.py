@@ -329,7 +329,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, t_start: float,
     run = Run(cell, seed, seconds, trace, cell.traffic["driver"], dtype=cell.config["dtype"])
     with tempfile.TemporaryDirectory(prefix="slambench-") as d:
         workdir = Path(d)
-        built = build(cell.config, seed, device)
+        built = build(cell.config, seed, device, cell.bench_dir)
         model = built.model
         quantize = "w8a8" if control == "w8a8" else cell.config.get("quantize")
         if quantize:

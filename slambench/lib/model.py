@@ -1,107 +1,76 @@
-"""A configuration file → the port's model with the benchmark's weights, and
-the same weights for the reference.
+"""A configuration file → the port's model with the benchmark's weights, the
+same weights for the reference, and the operations of one chunk.
 
-The networks are built on the meta device and take the benchmark's tensors
-by ``load_state_dict(strict=True, assign=True)``, so no parameter is made
-twice and none is copied.
+Each configuration names its ``kind``; the module ``kinds/<kind>.py`` of the
+benchmark folder builds that kind's network and supplies:
+
+- ``build(config, seed, device) -> Built``: the port's model on ``device``,
+  its weights drawn from one generator seeded with ``seed``, and what the
+  reference needs;
+- ``reference_forward(built, raw, process_res, act) -> dict``: the plain
+  reference over one chunk of uint8 views (``depth``, ``conf``,
+  ``extrinsics``, ``intrinsics``, ``frame_desc``, and ``metric_scale`` where
+  the kind has one), activations stored in ``act``;
+- ``chunk_flops(config, views, hw, process_res) -> float``: the reference's
+  matmul and convolution operations for one chunk (``FlopCounterMode`` on
+  the meta device);
+- ``CONTROLS``: the controls of ``tools/readings.py`` the kind supports.
+
+The functions here dispatch to it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 
 import torch
 
-from slambench.lib.weights import make_state_dict
-
-# the keys of a backbone block that are ModelConfig fields of the port
-_TUPLE_KEYS = ("dpt_layers", "dpt_features")
-
-
-def submodels(config: dict) -> list[tuple[str, dict]]:
-    """``[(role, backbone dict)]``: one any-view model, or the nested tier's
-    any-view and metric models."""
-    if config["kind"] == "nested":
-        return [("anyview", config["anyview"]), ("metric", config["metric"])]
-    return [("anyview", config["backbone"])]
-
-
-def reference_cfg(backbone: dict) -> dict:
-    return {**backbone, "dpt_layers": tuple(backbone["dpt_layers"])}
-
-
-def _port_cfg(backbone: dict):
-    from da3slam_tpu_torch.models.config import ModelConfig
-
-    fields = {f.name for f in dataclasses.fields(ModelConfig)}
-    kw = {k: tuple(v) if k in _TUPLE_KEYS else v for k, v in backbone.items() if k in fields}
-    return ModelConfig(**kw)
+from slambench.lib.spec import BENCH_DIR, load_module
 
 
 @dataclasses.dataclass
 class Built:
-    model: object  # DepthAnything3 or DepthAnything3Nested
+    model: object  # what the solver is given: DepthAnything3, DepthAnything3Nested, ...
     state_dicts: dict[str, dict[str, torch.Tensor]]  # role -> the weights, shared with the port
-    ref_cfgs: dict[str, dict]  # role -> the reference's backbone dict
+    ref_cfgs: dict[str, dict]  # role -> the reference's sizes
     act: torch.dtype  # the dtype the port stores activations in on this device
+    kind: object = None  # the module kinds/<kind>.py that built it
 
 
-def build(config: dict, seed: int, device: torch.device) -> Built:
-    """The configuration's model on ``device`` with weights drawn from ``seed``
-    (one generator on the device, the submodels in order)."""
-    from da3slam_tpu_torch.models.da3 import DA3Net, DepthAnything3
-
-    gen = torch.Generator(device).manual_seed(seed)
-    dtype = getattr(torch, config["dtype"]) if device.type == "cuda" else None
-    parts, sds, cfgs = {}, {}, {}
-    for role, backbone in submodels(config):
-        cfg = _port_cfg(backbone)
-        with torch.device("meta"):
-            net = DA3Net(cfg)
-        shapes = {k: tuple(v.shape) for k, v in net.state_dict().items()}
-        sd = make_state_dict(shapes, config["assumed"], gen, device)
-        net.load_state_dict(sd, strict=True, assign=True)
-        parts[role] = DepthAnything3(cfg, net, dtype)
-        sds[role], cfgs[role] = sd, reference_cfg(backbone)
-    if config["kind"] == "nested":
-        from da3slam_tpu_torch.models.nested import DepthAnything3Nested
-
-        model = DepthAnything3Nested(parts["anyview"], parts["metric"])
-    else:
-        model = parts["anyview"]
-    return Built(model, sds, cfgs, parts["anyview"].dtype)
+def kind(name: str, bench_dir: Path = BENCH_DIR):
+    """The module ``kinds/<name>.py`` of ``bench_dir``."""
+    path = bench_dir / "kinds" / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"configuration kind {name!r}: no file {path}")
+    return load_module(path)
 
 
-def reference_forward(built_sds: dict, ref_cfgs: dict, raw: torch.Tensor, process_res: int,
-                      act: torch.dtype) -> dict:
+def _part(module, name: str):
+    if not hasattr(module, name):
+        raise AttributeError(f"{module.__file__} defines no {name}")
+    return getattr(module, name)
+
+
+def build(config: dict, seed: int, device: torch.device, bench_dir: Path = BENCH_DIR) -> Built:
+    """The configuration's model on ``device`` with weights drawn from ``seed``."""
+    module = kind(config["kind"], bench_dir)
+    return dataclasses.replace(_part(module, "build")(config, seed, device), kind=module)
+
+
+def reference_forward(built: Built, raw: torch.Tensor, process_res: int, act: torch.dtype) -> dict:
     """The plain reference over one chunk of uint8 views, activations stored
     in ``act``."""
-    from slambench.reference import model as ref
-
-    if "metric" in built_sds:
-        return ref.forward_nested(built_sds["anyview"], ref_cfgs["anyview"], built_sds["metric"],
-                                  ref_cfgs["metric"], raw, process_res, act)
-    return ref.forward(built_sds["anyview"], ref_cfgs["anyview"], raw, process_res, act)
+    return _part(built.kind, "reference_forward")(built, raw, process_res, act)
 
 
-def chunk_flops(config: dict, views: int, hw: tuple[int, int], process_res: int) -> float:
-    """Operations of one chunk as the plain reference computes them (matmuls
-    and convolutions, ``FlopCounterMode`` on the meta device): the any-view
-    model over ``views`` views, and the metric model over one."""
-    from torch.utils.flop_counter import FlopCounterMode
+def chunk_flops(config: dict, views: int, hw: tuple[int, int], process_res: int,
+                bench_dir: Path = BENCH_DIR) -> float:
+    """Operations of one chunk of ``views`` views as the plain reference
+    computes them."""
+    return _part(kind(config["kind"], bench_dir), "chunk_flops")(config, views, hw, process_res)
 
-    from slambench.reference import model as ref
 
-    total = 0
-    for role, backbone in submodels(config):
-        with torch.device("meta"):
-            from da3slam_tpu_torch.models.da3 import DA3Net
-
-            net = DA3Net(_port_cfg(backbone))
-        sd = {k: torch.empty(v.shape, device="meta") for k, v in net.state_dict().items()}
-        n = views if role == "anyview" else 1
-        raw = torch.empty((n, *hw, 3), dtype=torch.uint8, device="meta")
-        with FlopCounterMode(display=False) as counter:
-            ref.forward(sd, reference_cfg(backbone), raw, process_res)
-        total += counter.get_total_flops()
-    return float(total)
+def controls(config: dict, bench_dir: Path = BENCH_DIR) -> tuple[str, ...]:
+    """The controls of ``tools/readings.py`` that the configuration's kind supports."""
+    return tuple(_part(kind(config["kind"], bench_dir), "CONTROLS"))

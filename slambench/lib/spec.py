@@ -3,7 +3,11 @@ the checkout names the cells and metrics, and each configuration, traffic
 mix, cell and per-layer metric sits in a file of its own under ``slambench/``:
 
 - ``configs/<config>.json``: the model's sizes, source and assumed values
-  (and ``quantize``, where the configuration is served quantized);
+  (and ``quantize``, where the configuration is served quantized), and its
+  ``kind``;
+- ``kinds/<kind>.py``: the network of a kind of configuration, its weights,
+  its plain reference and its operation count (``lib/model.py`` says what
+  it supplies);
 - ``traffic/<traffic>.json``: the parameters of a traffic mix (frames, their
   order, size, rate of arrival) and its ``driver``;
 - ``drivers/<driver>.py``: the code that turns a traffic file into frames and
@@ -42,6 +46,7 @@ class Cell:
     per_layer: list[dict]
     driver: object  # the module drivers/<traffic's driver>.py
     checks: list  # the modules checks/<name>.py of the cell's "checks"
+    bench_dir: Path  # the benchmark folder its files came from
 
 
 def load_benchmark(root: Path = ROOT) -> dict:
@@ -65,11 +70,12 @@ def load_cell(name: str, bench: dict | None = None, bench_dir: Path = BENCH_DIR)
     return Cell(name, entry["chips"], config, traffic, settings,
                 [m for m in bench["end_to_end"] if _reports(m, name)],
                 [m for m in bench["per_layer"] if _reports(m, name)],
-                _module(bench_dir / "drivers" / f"{traffic['driver']}.py"),
-                [_module(bench_dir / "checks" / f"{c}.py") for c in settings.get("checks", [])])
+                load_module(bench_dir / "drivers" / f"{traffic['driver']}.py"),
+                [load_module(bench_dir / "checks" / f"{c}.py") for c in settings.get("checks", [])],
+                bench_dir)
 
 
-def _module(path: Path):
+def load_module(path: Path):
     """The Python file ``path`` as a module of its own."""
     name = "slambench_" + "_".join(path.with_suffix("").parts[-2:]).replace(".", "_").replace("-", "_")
     spec = importlib.util.spec_from_file_location(name, path)
@@ -80,4 +86,4 @@ def _module(path: Path):
 
 def metric_reader(name: str, bench_dir: Path = BENCH_DIR):
     """``read`` of ``metrics/<name>.py``."""
-    return _module(bench_dir / "metrics" / f"{name}.py").read
+    return load_module(bench_dir / "metrics" / f"{name}.py").read

@@ -47,7 +47,7 @@ def measure(cell, seed: int, seconds: float, trace: bool, device, control: str |
     if trace:
         t = cell.traffic
         run.flops_per_chunk = chunk_flops(cell.config, cell.settings["solver"]["Model"]["chunk_size"],
-                                          tuple(t["hw"]), t.get("process_res", 504))
+                                          tuple(t["hw"]), t.get("process_res", 504), cell.bench_dir)
     numbers = check.compare(run, built, device, control)
     del built
     if device.type == "cuda":

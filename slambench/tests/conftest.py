@@ -38,7 +38,7 @@ def tiny_bench(tmp_path: Path):
     ``tiny-live`` cells (a ``tiny`` configuration, 7-frame sequences, chunk
     4: two chunks a sequence, both kept for the comparison), added as new
     files only.  Returns (BENCHMARK dict, folder)."""
-    for sub in ("configs", "traffic", "drivers", "workloads"):
+    for sub in ("configs", "kinds", "traffic", "drivers", "workloads"):
         shutil.copytree(BENCH_DIR / sub, tmp_path / sub)
     config = {"name": "tiny", "source": "test size", "reduced": [], "kind": "da3",
               "dtype": "bfloat16", "backbone": TINY_BACKBONE, "assumed": ASSUMED}

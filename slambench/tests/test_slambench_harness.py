@@ -186,7 +186,7 @@ def test_reference_agrees_with_the_port_in_float32(kind):
     built = build(config, 5, torch.device("cpu"))
     raw = torch.from_numpy(frames.render_sequence(3, 5, (70, 70), "cpu"))
     pred = built.model.inference(image=raw, process_res=56)
-    ref = reference_forward(built.state_dicts, built.ref_cfgs, raw, 56, torch.float32)
+    ref = reference_forward(built, raw, 56, torch.float32)
     got = {k: np.asarray(getattr(pred, k)) for k in
            ("depth", "conf", "extrinsics", "intrinsics", "frame_desc")}
     if kind == "nested":

@@ -36,7 +36,7 @@ def main() -> None:
     device = torch.device("cuda")
     with tempfile.TemporaryDirectory(prefix="slambench-") as d, \
             contextlib.redirect_stdout(sys.stderr):
-        model = build(cell.config, seed, device).model
+        model = build(cell.config, seed, device, cell.bench_dir).model
         frames = drv.source(cell, seed, device, Path(d))
         drv.warm(model, cell, frames, Path(d), device)
         step = cell.settings["solver"]["Model"]["chunk_size"] - cell.settings["solver"]["Model"]["overlap_size"]
