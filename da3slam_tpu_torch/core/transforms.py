@@ -210,6 +210,29 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
     return torch.stack([row0, row1, row2], dim=-2)
 
 
+def abs_t_quat_fov_to_camera(pose: torch.Tensor, hw: tuple[int, int]
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """VGGT's ``absT_quaR_FoV`` pose encoding ``[..., 9]`` = (T, q, FoV) →
+    (w2c ``[..., 3, 4]`` = [R(q) | T], intrinsics ``[..., 3, 3]``).
+
+    q = pose[3:7] is scalar-last; the fields of view (h, w) = ReLU(pose[7:9])
+    (VGGT's ``fl_act``) give f_y = (H/2) / tan(FoV_h/2), f_x = (W/2) /
+    tan(FoV_w/2); the principal point is the image centre."""
+    H, W = hw
+    fov = torch.relu(pose[..., 7:9])
+    R = quat_to_rotmat(torch.cat([pose[..., 6:7], pose[..., 3:6]], dim=-1))  # to (w, x, y, z)
+    E = torch.cat([R, pose[..., 0:3, None]], dim=-1)
+    fy = (H / 2.0) / torch.tan(fov[..., 0] / 2.0)
+    fx = (W / 2.0) / torch.tan(fov[..., 1] / 2.0)
+    zeros, ones = torch.zeros_like(fx), torch.ones_like(fx)
+    K = torch.stack([
+        torch.stack([fx, zeros, ones * (W / 2.0)], -1),
+        torch.stack([zeros, fy, ones * (H / 2.0)], -1),
+        torch.stack([zeros, zeros, ones], -1),
+    ], dim=-2)
+    return E, K
+
+
 def rotmat_to_quat(R: torch.Tensor) -> torch.Tensor:
     """``[..., 3, 3]`` → quaternion (w, x, y, z), branch-free: the four
     Shepperd candidates, the best-conditioned one picked by ``argmax``, the

@@ -113,6 +113,9 @@ def forward_fn(
 class DepthAnything3:
     """Holds (config, network, dtype) behind the reference-shaped API."""
 
+    # the solver's prefetcher may hand it decoded arrays in place of paths
+    takes_arrays = True
+
     def __init__(self, cfg: ModelConfig, net: DA3Net, dtype: torch.dtype | None = None):
         self.cfg = cfg
         self.net = net.eval()
@@ -239,17 +242,7 @@ class DepthAnything3:
         if export_dir is not None and export_format not in ("mini_npz", "glb"):
             raise ValueError(f"unknown export_format {export_format!r}")
         with span("model.inference") as attrs:
-            if isinstance(image, torch.Tensor):
-                raw = image if image.ndim == 4 else image[None]
-            else:
-                raw = torch.from_numpy(_load_images(image))
-            attrs["views"] = raw.shape[0]
-            if self.device.type == "cuda" and raw.device.type == "cpu":
-                # pinned + non_blocking: the upload queues behind the previous
-                # chunk's work instead of making the host wait for it
-                with span("model.upload", bytes=nbytes(raw)):
-                    raw = raw.pin_memory().to(self.device, non_blocking=True)
-            raw = raw.to(self.device)
+            raw = upload_views(image, self.device, attrs)
             h, w = raw.shape[1], raw.shape[2]
             th, tw = upper_bound_shape(h, w, process_res, self.cfg.patch_size)
             norm = resize_normalize(raw, (th, tw))
@@ -276,14 +269,38 @@ class DepthAnything3:
                 "intrinsics": out["intrinsics"].float(),
                 "frame_desc": out["frame_desc"].float(),
             }
-            if not keep_on_device:
-                with span("model.fetch", bytes=nbytes(*fields.values())):
-                    fields = {k: v.cpu().numpy() for k, v in fields.items()}
-            pred = Prediction(**fields)
+            pred = deliver(fields, keep_on_device)
             if export_dir is not None:
                 _export({k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
-                         for k, v in fields.items()}, Path(export_dir), export_format)
+                         for k, v in vars(pred).items() if k in fields},
+                        Path(export_dir), export_format)
             return pred
+
+
+def upload_views(image, device: torch.device, attrs: dict) -> torch.Tensor:
+    """Paths, arrays or a tensor of views → uint8 ``[N, H, W, 3]`` on
+    ``device``; the number of views goes into the enclosing span's
+    ``attrs``."""
+    if isinstance(image, torch.Tensor):
+        raw = image if image.ndim == 4 else image[None]
+    else:
+        raw = torch.from_numpy(_load_images(image))
+    attrs["views"] = raw.shape[0]
+    if device.type == "cuda" and raw.device.type == "cpu":
+        # pinned + non_blocking: the upload queues behind the previous
+        # chunk's work instead of making the host wait for it
+        with span("model.upload", bytes=nbytes(raw)):
+            raw = raw.pin_memory().to(device, non_blocking=True)
+    return raw.to(device)
+
+
+def deliver(fields: dict, keep_on_device: bool) -> Prediction:
+    """A prediction of device tensors, or of numpy arrays fetched in the
+    ``model.fetch`` span."""
+    if not keep_on_device:
+        with span("model.fetch", bytes=nbytes(*fields.values())):
+            fields = {k: v.cpu().numpy() for k, v in fields.items()}
+    return Prediction(**fields)
 
 
 def _ffn_from_tensors(cfg: ModelConfig, sd: dict) -> ModelConfig:

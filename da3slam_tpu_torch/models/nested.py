@@ -62,6 +62,9 @@ class DepthAnything3Nested:
     ``net``, ``dtype`` and ``device`` are the any-view submodel's, the one the
     SLAM stack runs."""
 
+    # the solver's prefetcher may hand it decoded arrays in place of paths
+    takes_arrays = True
+
     def __init__(self, anyview, metric):
         self.anyview = anyview
         self.metric = metric

@@ -88,12 +88,9 @@ class SLAMSolver:
 
         self.model = model if model is not None else self._load_model()
         if self.prefetch is None:
-            # only the port's own models are known to take pre-decoded arrays;
-            # other models (e.g. path-keyed test doubles) keep paths
-            from da3slam_tpu_torch.models.da3 import DepthAnything3
-            from da3slam_tpu_torch.models.nested import DepthAnything3Nested
-
-            self.prefetch = isinstance(self.model, (DepthAnything3, DepthAnything3Nested))
+            # a model that says it takes pre-decoded arrays (the port's own)
+            # gets them; others (e.g. path-keyed test doubles) keep paths
+            self.prefetch = bool(getattr(self.model, "takes_arrays", False))
         self.viewer = self._init_viewer() if viewer == "auto" else viewer
 
         # optional online loop closure (off by default; slam/online_loop.py)
@@ -110,9 +107,17 @@ class SLAMSolver:
         self.timer = StageTimer(sync=False)
 
     def _load_model(self):
+        """The model ``Weights.DA3`` names: a VGGT preset (``VGGT-1B``,
+        ``vggt-tiny``; ``models/vggt.py``) or anything
+        ``DepthAnything3.from_pretrained`` takes (a DA3 preset or checkpoint
+        directory)."""
         from da3slam_tpu_torch.models.da3 import DepthAnything3
+        from da3slam_tpu_torch.models.vggt import VGGT, vggt_preset
 
         model_path = self.config.get("Weights", {}).get("DA3", "small")
+        if vggt_preset(model_path) is not None:
+            print(f"Loading VGGT model {model_path}...")
+            return VGGT.from_pretrained(model_path, device=self.device)
         print(f"Loading DA3 model from {model_path}...")
         return DepthAnything3.from_pretrained(model_path, device=self.device)
 

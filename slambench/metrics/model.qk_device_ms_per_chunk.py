@@ -1,0 +1,4 @@
+"""model.qk_device_ms_per_chunk: device time launched inside model.qk (QK-norm and RoPE) in the slice, a chunk."""
+from slambench.lib.program_spans import device_ms_per_chunk
+
+read = device_ms_per_chunk("model.qk")
