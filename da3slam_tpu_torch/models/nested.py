@@ -157,44 +157,45 @@ class DepthAnything3Nested:
         define the scale and the rescale is skipped.  ``export_dir`` goes to
         the any-view inference, so its ``prediction.npz`` holds the depth
         before the rescale, as in the JAX package.  Both submodels' spans
-        sit inside this call's ``model.nested`` span."""
-        with span("model.nested"):
+        sit inside this call's ``model.nested`` span, whose ``fetches``
+        attribute counts the call's fetches of a prediction to the host
+        (``model.fetch`` spans): 1, or 0 with ``keep_on_device``.
+
+        Without ``extrinsics=`` the host waits for neither branch: the metric
+        branch is enqueued right behind the any-view forward, the scale is
+        found and applied on the device, and the rescaled chunk is fetched
+        once, at the end."""
+        with span("model.nested") as attrs:
+            attrs["fetches"] = 0 if kwargs.get("keep_on_device", False) else 1
             return self._inference(image, ref_view_strategy, **kwargs)
 
     def _inference(self, image, ref_view_strategy: str, **kwargs):
         from da3slam_tpu_torch.models import camera
-        from da3slam_tpu_torch.models.da3 import _load_images
+        from da3slam_tpu_torch.models.da3 import deliver
 
-        pred = self.anyview.inference(image, ref_view_strategy=ref_view_strategy, **kwargs)
         if kwargs.get("extrinsics") is not None:
-            return pred
+            return self.anyview.inference(image, ref_view_strategy=ref_view_strategy, **kwargs)
+        pred = self.anyview.inference(image, ref_view_strategy=ref_view_strategy,
+                                      **{**kwargs, "keep_on_device": True})
 
-        # the metric branch sees the raw reference view (it resizes itself);
-        # a batch staged on the device is sliced where it lives
-        if isinstance(image, torch.Tensor):
-            n = image.shape[0] if image.ndim == 4 else 1
-            ref_idx = camera.ref_view_index(n, ref_view_strategy)
-            ref_raw = image[ref_idx][None] if image.ndim == 4 else image[None]
-        else:
-            raw = _load_images(image)
-            ref_idx = camera.ref_view_index(raw.shape[0], ref_view_strategy)
-            ref_raw = raw[ref_idx][None]
-        mkwargs = {k: v for k, v in kwargs.items()
-                   if k in ("process_res", "process_res_method", "keep_on_device")}
-        mono = self.metric.inference(ref_raw, **mkwargs)
+        # the metric branch sees the raw reference view (it resizes itself):
+        # a staged device batch is sliced where it lives, and of a list of
+        # paths or arrays only that one is read again
+        views = image[None] if getattr(image, "ndim", None) == 3 else image
+        ref_idx = camera.ref_view_index(len(views), ref_view_strategy)
+        mkwargs = {k: v for k, v in kwargs.items() if k in ("process_res", "process_res_method")}
+        mono = self.metric.inference(views[ref_idx:ref_idx + 1], keep_on_device=True, **mkwargs)
 
         s = metric_scale_from_mono(pred.depth[ref_idx], pred.conf[ref_idx],
                                    mono.depth[0], mono.conf[0])
-        if kwargs.get("keep_on_device", False):
-            ext = pred.extrinsics.clone()
-            ext[:, :, 3] *= s
-            return dataclasses.replace(pred, depth=pred.depth * s, extrinsics=ext,
-                                       metric_scale=s)
-        sf = np.float32(s.item())
-        ext = np.array(pred.extrinsics, np.float32)
-        ext[:, :, 3] *= sf
-        return dataclasses.replace(pred, depth=pred.depth * sf, extrinsics=ext,
-                                   metric_scale=float(sf))
+        ext = pred.extrinsics.clone()
+        ext[:, :, 3] *= s
+        keep = kwargs.get("keep_on_device", False)
+        out = deliver({**vars(pred), "depth": pred.depth * s, "extrinsics": ext,
+                       "metric_scale": s}, keep)
+        if not keep:
+            out.metric_scale = float(out.metric_scale)
+        return out
 
 
 def _config_from_state_dict(sd: dict[str, Any]) -> ModelConfig:

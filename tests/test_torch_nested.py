@@ -13,6 +13,7 @@ ratios of those maps), ``metric_scale_from_mono`` on the same arrays within
 import dataclasses
 import importlib.util
 import json
+import time
 from pathlib import Path
 
 import numpy as np
@@ -39,6 +40,8 @@ from da3slam_tpu_torch.models.nested import (
 )
 from da3slam_tpu_torch.models.torch_import import split_nested_state_dict
 from da3slam_tpu_torch.models.weights import save_file
+from da3slam_tpu_torch.utils import profiling as prof
+from test_torch_nested_cuda import assert_equals_old_order, old_order
 
 torch.set_num_threads(2)
 FIXTURES = Path(__file__).parent / "fixtures"
@@ -188,6 +191,30 @@ class TestNestedInference:
         assert float(b.metric_scale) == a.metric_scale
         np.testing.assert_array_equal(b.depth.numpy(), a.depth)
         np.testing.assert_array_equal(b.extrinsics.numpy(), a.extrinsics)
+
+    @pytest.mark.parametrize("staged", [False, True], ids=["list", "staged"])
+    def test_default_call_equals_the_old_order(self, pair, staged):
+        """One fetch at the end gives, bit for bit, what fetching each branch
+        and rescaling on the host gave (``test_torch_nested_cuda.py``: the
+        same on the card)."""
+        _, tn = pair
+        image = torch.from_numpy(IMGS) if staged else list(IMGS)
+        assert_equals_old_order(tn.inference(image, process_res=70), old_order(tn, image, 70))
+
+    @pytest.mark.parametrize("keep", [False, True], ids=["fetched", "kept"])
+    def test_the_chunk_is_fetched_once_after_both_branches(self, pair, keep):
+        _, tn = pair
+        t0 = time.perf_counter()
+        tn.inference(list(IMGS), process_res=70, keep_on_device=keep)
+        recs = prof.records(since=t0)
+        (top,) = [r for r in recs if r.name == "model.nested"]
+        branches = [r for r in recs if r.name == "model.inference"]
+        fetches = [r for r in recs if r.name == "model.fetch"]
+        assert len(branches) == 2 and all(r.parent == top.id for r in branches)
+        assert top.attrs["fetches"] == len(fetches) == (0 if keep else 1)
+        if not keep:
+            assert fetches[0].parent == top.id
+            assert fetches[0].start >= max(r.end for r in branches)
 
     @pytest.mark.parametrize("strategy", ["first", "middle"])
     def test_ref_view_strategy_matches_jax(self, pair, strategy):
