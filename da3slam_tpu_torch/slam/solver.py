@@ -15,13 +15,17 @@ makes the host wait 0 times and the fetch once; IRLS adds 20 waits, all at
 outside the loop: building the model moves each parameter tensor to the
 device with a blocking copy (249 for SMALL).  Otherwise every chunk's
 prediction is fetched to numpy (and uploaded again for alignment), as the
-reference does: 50 waits over the same frames.
+reference does, apart from the registration's R and t, which nothing reads
+and which stay on the device.  The mode is read at each step
+(``device_resident``, and whether a loop closer runs), never from the type
+of a value: in device-resident mode every dense field of a prediction is a
+tensor on ``device``.
 
 ``Loop.enable`` adds online loop closure (``slam/online_loop.py``): each
 chunk is enrolled for retrieval, and a gated loop edge re-anchors the
 trajectory so far through the pose graph.  It consumes host poses and
-descriptors every chunk, so device-resident alignment then fetches them with
-the chunk's stats in one packed transfer a chunk.
+descriptors every chunk, so device-resident mode then fetches them (with the
+chunk's stats, once aligned) in one packed transfer a chunk.
 
 ``viewer="auto"`` (the default, as in the JAX package) opens a
 ``viz/viewer.py:SLAMViewer`` on ``Model.port``, or runs headless with a
@@ -46,15 +50,7 @@ from da3slam_tpu_torch.core.transforms import se3_inverse, se3_to_4x4
 from da3slam_tpu_torch.inout.images import extract_keyframes, load_image_paths
 from da3slam_tpu_torch.slam.alignment import AlignmentConfig, align_chunk_single_overlap
 from da3slam_tpu_torch.utils.profiling import StageTimer, nbytes, span
-
-
-def fetch_packed(tensors: List[torch.Tensor]) -> List[np.ndarray]:
-    """Device tensors → numpy arrays in their own dtypes, in ONE device→host
-    transfer: they are packed into one f64 buffer on the device, and f64
-    holds every f32 (and every index below 2^53) exactly."""
-    packed = torch.cat([t.detach().reshape(-1).to(torch.float64) for t in tensors]).cpu()
-    return [part.reshape(t.shape).to(t.dtype).numpy()
-            for part, t in zip(packed.split([t.numel() for t in tensors]), tensors)]
+from da3slam_tpu_torch.utils.transfer import fetch_packed
 
 
 class SLAMSolver:
@@ -107,19 +103,10 @@ class SLAMSolver:
         self.timer = StageTimer(sync=False)
 
     def _load_model(self):
-        """The model ``Weights.DA3`` names: a VGGT preset (``VGGT-1B``,
-        ``vggt-tiny``; ``models/vggt.py``) or anything
-        ``DepthAnything3.from_pretrained`` takes (a DA3 preset or checkpoint
-        directory)."""
-        from da3slam_tpu_torch.models.da3 import DepthAnything3
-        from da3slam_tpu_torch.models.vggt import VGGT, vggt_preset
+        """The model ``Weights.DA3`` names (``models.load_model``)."""
+        from da3slam_tpu_torch.models import load_model
 
-        model_path = self.config.get("Weights", {}).get("DA3", "small")
-        if vggt_preset(model_path) is not None:
-            print(f"Loading VGGT model {model_path}...")
-            return VGGT.from_pretrained(model_path, device=self.device)
-        print(f"Loading DA3 model from {model_path}...")
-        return DepthAnything3.from_pretrained(model_path, device=self.device)
+        return load_model(self.config.get("Weights", {}).get("DA3", "small"), device=self.device)
 
     def _init_viewer(self):
         port = self.config.get("Model", {}).get("port", 8080)
@@ -158,20 +145,22 @@ class SLAMSolver:
             # this chunk's forward is queued (device-resident mode) or done:
             # start the next chunk's image upload now
             self._prefetcher.stage_next()
-        dense = (lambda a: a) if self.device_resident else np.asarray
-        out = {
-            "chunk_idx": self.chunk_count,
-            "image_paths": chunk_image_paths,
-            "processed_images": dense(pred.processed_images),
-            "depth": dense(pred.depth),
-            "conf": dense(pred.conf),
-            "extrinsics": dense(pred.extrinsics),
-            "intrinsics": dense(pred.intrinsics),
-        }
+        fields = {k: getattr(pred, k) for k in
+                  ("processed_images", "depth", "conf", "extrinsics", "intrinsics")}
         fd = getattr(pred, "frame_desc", None)
         if fd is not None:
-            out["frame_desc"] = dense(fd)
-        return out
+            fields["frame_desc"] = fd
+        if self.device_resident:
+            # the port's models keep their fields on the device already; a
+            # host-only double (utils/synthetic.py) gets its one upload here
+            fields = {k: torch.as_tensor(a, device=self.device) for k, a in fields.items()}
+        return {"chunk_idx": self.chunk_count, "image_paths": chunk_image_paths, **fields}
+
+    @property
+    def _defers(self) -> bool:
+        """Device-resident without a loop closer: a chunk's stats, poses and
+        intrinsics stay on the device until ``_materialize``."""
+        return self.device_resident and self.loop_closer is None
 
     # -- alignment ---------------------------------------------------------
     def _dev(self, a) -> torch.Tensor:
@@ -181,7 +170,8 @@ class SLAMSolver:
         """Scale + register + chain.  ``anchor_idx`` is the index within
         ``cur`` of the frame shared with the previous chunk's last frame:
         ``overlap_size - 1`` in the steady state, ``chunk_size - 1 - n_new``
-        for the re-anchored tail window."""
+        for the re-anchored tail window.  Returns ``(depth_scale, fitness,
+        inlier_rmse)``: floats, or device scalars where the mode defers."""
         if anchor_idx is None:
             anchor_idx = self.overlap_size - 1
         host = {"prev_depth": prev["depth"][-1], "prev_conf": prev["conf"][-1],
@@ -195,58 +185,56 @@ class SLAMSolver:
             attrs["bytes"] = nbytes(*(t for k, t in inputs.items() if t is not host[k]))
         out = align_chunk_single_overlap(**inputs, config=self.align_config,
                                          anchor_idx=anchor_idx)
-        if self.device_resident:
-            cur["depth"] = out.depth_scaled
-            self.prev_overlap_aligned_3x4 = out.prev_overlap_for_next
-            cur["extrinsics_global"] = out.extrinsics_global
-            if self.loop_closer is None:
-                # nothing leaves the device: stats and poses are fetched
-                # once, at the end of run()
-                return (out.depth_scale, out.transform.R, out.transform.t, out.fitness,
-                        out.inlier_rmse)
-            # loop closure consumes host poses, scale and descriptors every
-            # chunk: one packed transfer
-            fd = cur.get("frame_desc")
-            extra = [fd] if isinstance(fd, torch.Tensor) else []
-            fetched = [out.extrinsics_global, out.depth_scale, out.transform.R, out.transform.t,
-                       out.fitness, out.inlier_rmse, *extra]
-            with span("align.fetch", bytes=8 * sum(t.numel() for t in fetched)):  # one f64 buffer
-                eg, s, R, t, fitness, rmse, *fd = fetch_packed(fetched)
-            cur["extrinsics_global"] = eg
-            if fd:
-                cur["frame_desc"] = fd[0]
-            return float(s), R, t, float(fitness), float(rmse)
-        with span("align.fetch", bytes=nbytes(
-                out.depth_scaled, out.extrinsics_global, out.prev_overlap_for_next,
-                out.depth_scale, out.transform.R, out.transform.t, out.fitness,
-                out.inlier_rmse)):
-            cur["depth"] = out.depth_scaled.cpu().numpy()
-            cur["extrinsics_global"] = out.extrinsics_global.cpu().numpy()
-            self.prev_overlap_aligned_3x4 = out.prev_overlap_for_next.cpu().numpy()
-            return (
-                float(out.depth_scale),
-                out.transform.R.cpu().numpy(),
-                out.transform.t.cpu().numpy(),
-                float(out.fitness),
-                float(out.inlier_rmse),
-            )
+        held = (out.depth_scaled, out.extrinsics_global, out.prev_overlap_for_next)
+        stats = (out.depth_scale, out.fitness, out.inlier_rmse)
+        if not self.device_resident:
+            with span("align.fetch", bytes=nbytes(*held, *stats)):
+                self._hold(cur, *(t.cpu().numpy() for t in held))
+                return tuple(float(x) for x in stats)
+        self._hold(cur, *held)
+        if self._defers:
+            # nothing leaves the device: stats and poses are fetched once,
+            # at the end of run()
+            return stats
+        with span("align.fetch") as attrs:
+            return self._fetch_for_loop(cur, attrs, *stats)
+
+    def _hold(self, cur: Dict, depth, extrinsics_global, carry) -> None:
+        """Keep an aligned chunk's scaled depth and global poses, and the
+        carry: the global pose of the frame the next chunk chains from."""
+        cur["depth"], cur["extrinsics_global"] = depth, extrinsics_global
+        self.prev_overlap_aligned_3x4 = carry
+
+    def _fetch_for_loop(self, cur: Dict, attrs: Dict, *stats) -> tuple:
+        """Device-resident with a loop closer, which reads a chunk's global
+        poses and descriptors on the host: those and ``stats`` in ONE packed
+        transfer (its bytes into ``attrs``).  Returns the stats as floats."""
+        fd = cur.get("frame_desc")
+        fetched = [cur["extrinsics_global"], *stats] + ([] if fd is None else [fd])
+        attrs["bytes"] = 8 * sum(t.numel() for t in fetched)  # one f64 buffer
+        cur["extrinsics_global"], *host = fetch_packed(fetched)
+        if fd is not None:
+            cur["frame_desc"] = host.pop()
+        return tuple(float(x) for x in host)
 
     def _report(self, tag: str, s, fitness, rmse) -> None:
-        if isinstance(s, float):
-            print(f"  {tag}: depth_scale={s:.4f} fitness={fitness:.4f} inlier_rmse={rmse:.5f}")
-        else:
+        if self._defers:
             # device scalars: printing them now would wait on the device
             self._deferred_stats.append((tag, s, fitness, rmse))
+        else:
+            print(f"  {tag}: depth_scale={s:.4f} fitness={fitness:.4f} inlier_rmse={rmse:.5f}")
 
     def _first_chunk_globals(self, cur: Dict) -> None:
         """The first chunk defines the global frame."""
         ext = cur["extrinsics"]
-        if isinstance(ext, torch.Tensor):
-            cur["extrinsics_global"] = ext.to(torch.float64)
-            self.prev_overlap_aligned_3x4 = ext[-1].to(torch.float32)
-        else:
-            cur["extrinsics_global"] = np.asarray(ext).astype(np.float64)
+        if not self.device_resident:
+            cur["extrinsics_global"] = ext.astype(np.float64)
             self.prev_overlap_aligned_3x4 = cur["extrinsics_global"][-1].astype(np.float32)
+            return
+        cur["extrinsics_global"] = ext.to(torch.float64)
+        self.prev_overlap_aligned_3x4 = ext[-1].to(torch.float32)
+        if self.loop_closer is not None:
+            self._fetch_for_loop(cur, {})
 
     # -- online loop closure -------------------------------------------------
     def _loop_stage(self, cur: Dict, new_start: int, depth_scale: float) -> None:
@@ -254,10 +242,8 @@ class SLAMSolver:
         re-anchor the whole trajectory so far from the optimised pose graph.
         The carry (the previous overlap frame's global pose) is re-anchored
         too, so every later chunk chains from the corrected trajectory."""
-        fd = cur.get("frame_desc")
-        if isinstance(fd, torch.Tensor):  # a first chunk's: not fetched with stats
-            fd = fd.cpu().numpy()
-        self.loop_closer.add_chunk(cur, new_start, frame_desc=fd, depth_scale=depth_scale)
+        self.loop_closer.add_chunk(cur, new_start, frame_desc=cur.get("frame_desc"),
+                                   depth_scale=depth_scale)
         updated = self.loop_closer.maybe_close([r["extrinsics_global"] for r in self.results])
         if updated is None:
             return
@@ -291,44 +277,46 @@ class SLAMSolver:
         )
 
     # -- main loop ---------------------------------------------------------
-    def process_frame(self, image_path: str) -> None:
-        self.frame_buffer.append(image_path)
-        if not self.should_run_chunk_prediction():
-            return
-
+    def _process_chunk(self, paths: List[str], anchor_idx: int | None, dedup_skip: int,
+                       tag: str) -> None:
+        """One chunk, a steady or a tail window: inference; the first chunk's
+        globals or the alignment to the previous chunk; the loop stage and
+        the viewer.  ``dedup_skip``: the leading frames the previous chunk
+        already holds."""
         with span("chunk", chunk=(self.serial, self.chunk_count)):
-            chunk_paths = self.load_chunk_image_paths()
             with self.timer("inference"):
-                cur = self.run_single_chunk_prediction(chunk_paths)
-
+                cur = self.run_single_chunk_prediction(paths)
             depth_scale = 1.0
             if self.chunk_count == 0:
                 self._first_chunk_globals(cur)
             else:
                 with self.timer("align"):
-                    s, _R, _t, fitness, rmse = self.process_chunk_alignment(
-                        self.prev_chunk_prediction, cur
-                    )
-                self._report(f"chunk {self.chunk_count}", s, fitness, rmse)
-                if isinstance(s, float):  # device scalars: no loop stage consumes them
-                    depth_scale = s
-
+                    depth_scale, fitness, rmse = self.process_chunk_alignment(
+                        self.prev_chunk_prediction, cur, anchor_idx)
+                self._report(tag, depth_scale, fitness, rmse)
             self.results.append({
-                "chunk_idx": cur["chunk_idx"],
-                "image_paths": cur["image_paths"],
+                "chunk_idx": self.chunk_count,
+                "image_paths": paths,
                 "extrinsics_global": cur["extrinsics_global"],
                 "intrinsics": cur["intrinsics"],
-                # leading frames duplicated from the previous chunk
-                "dedup_skip": 0 if self.chunk_count == 0 else self.overlap_size,
+                "dedup_skip": dedup_skip,
             })
             if self.loop_closer is not None:
                 with self.timer("loop"):
-                    self._loop_stage(cur, self.results[-1]["dedup_skip"], depth_scale)
+                    self._loop_stage(cur, dedup_skip, depth_scale)
             with self.timer("viewer"):
-                self.update_viewer(cur, start=self.results[-1]["dedup_skip"])
+                self.update_viewer(cur, start=dedup_skip)
             self.prev_chunk_prediction = cur
-            self.update_buffer_after_chunk_processed()
             self.chunk_count += 1
+
+    def process_frame(self, image_path: str) -> None:
+        self.frame_buffer.append(image_path)
+        if not self.should_run_chunk_prediction():
+            return
+        self._process_chunk(self.load_chunk_image_paths(), None,
+                            0 if self.chunk_count == 0 else self.overlap_size,
+                            f"chunk {self.chunk_count}")
+        self.update_buffer_after_chunk_processed()
         if self.sleep_between_chunk:
             time.sleep(self.sleep_between_chunk)
 
@@ -341,53 +329,27 @@ class SLAMSolver:
         n_new = len(image_paths) - processed
         if n_new <= 0:
             return
-
-        with span("chunk", chunk=(self.serial, self.chunk_count)):
-            depth_scale = 1.0
-            if self.chunk_count == 0:
-                # fewer frames than one chunk: run them all as chunk 0
-                chunk_paths = list(image_paths)
-                with self.timer("inference"):
-                    cur = self.run_single_chunk_prediction(chunk_paths)
-                self._first_chunk_globals(cur)
-                dedup_skip = 0
-            else:
-                # the previous chunk's last frame sits at index chunk_size - 1 - n_new
-                chunk_paths = list(image_paths[-self.chunk_size:])
-                with self.timer("inference"):
-                    cur = self.run_single_chunk_prediction(chunk_paths)
-                with self.timer("align"):
-                    s, _R, _t, fitness, rmse = self.process_chunk_alignment(
-                        self.prev_chunk_prediction, cur, anchor_idx=self.chunk_size - 1 - n_new
-                    )
-                self._report(f"tail chunk ({n_new} new frames)", s, fitness, rmse)
-                if isinstance(s, float):
-                    depth_scale = s
-                dedup_skip = self.chunk_size - n_new
-
-            self.results.append({
-                "chunk_idx": self.chunk_count,
-                "image_paths": chunk_paths,
-                "extrinsics_global": cur["extrinsics_global"],
-                "intrinsics": cur["intrinsics"],
-                "dedup_skip": dedup_skip,
-            })
-            if self.loop_closer is not None:
-                with self.timer("loop"):
-                    self._loop_stage(cur, dedup_skip, depth_scale)
-            with self.timer("viewer"):
-                self.update_viewer(cur, start=dedup_skip)
-            self.prev_chunk_prediction = cur
-            self.frame_buffer.clear()
-            self.chunk_count += 1
+        tag = f"tail chunk ({n_new} new frames)"
+        if self.chunk_count == 0:
+            # fewer frames than one chunk: run them all as chunk 0
+            self._process_chunk(list(image_paths), None, 0, tag)
+        else:
+            # the previous chunk's last frame sits at index chunk_size - 1 - n_new
+            self._process_chunk(list(image_paths[-self.chunk_size:]), self.chunk_size - 1 - n_new,
+                                self.chunk_size - n_new, tag)
+        self.frame_buffer.clear()
 
     def _materialize(self) -> None:
-        """End of run (device-resident mode): every deferred stat and every
-        chunk's global poses and intrinsics in ONE device→host transfer
-        (``fetch_packed``: each array comes back bit for bit in its dtype)."""
+        """End of run (device-resident mode): every deferred stat and what
+        the results still hold on the device (the intrinsics, and the global
+        poses where no loop closer fetched them a chunk) in ONE device→host
+        transfer (``fetch_packed``: each array comes back bit for bit in its
+        dtype)."""
+        if not self.device_resident:
+            return
+        keys = ("extrinsics_global", "intrinsics") if self._defers else ("intrinsics",)
         stats = [x.float() for _, s, f, r in self._deferred_stats for x in (s, f, r)]
-        slots = [(r, key) for r in self.results for key in ("extrinsics_global", "intrinsics")
-                 if isinstance(r[key], torch.Tensor)]
+        slots = [(r, key) for r in self.results for key in keys]
         tensors = stats + [r[key] for r, key in slots]
         if not tensors:
             return

@@ -11,7 +11,7 @@ The geometry runs on the viewer's ``device`` (the card by default):
 backprojection, the ingest stride, the validity mask and the camera poses
 (``se3_inverse``, ``rotmat_to_quat``) of a batch of frames
 (``add_frames``, as the solver sends a chunk) are computed where the frames
-live and come back in one device→host transfer (``slam/solver.py:fetch_packed``);
+live and come back in one device→host transfer (``utils/transfer.py:fetch_packed``);
 host arrays go up through pinned memory without waiting.  The scene
 bookkeeping, the percentile and the sends stay on the host.
 
@@ -32,6 +32,7 @@ import torch
 from da3slam_tpu_torch.core.geometry import backproject_depth
 from da3slam_tpu_torch.core.transforms import rotmat_to_quat, se3_inverse
 from da3slam_tpu_torch.utils.profiling import span
+from da3slam_tpu_torch.utils.transfer import fetch_packed
 
 # every frustum shows its frame at this stride
 THUMB_STRIDE = 4
@@ -133,8 +134,6 @@ class SLAMViewer:
         """Backproject, stride and mask the frames on the device; one fetch.
         Returns per frame ``(image, pts, cols, confs, quat, pos, K)`` on the
         host: ``image`` the frustum's thumbnail in the add_frame convention."""
-        from da3slam_tpu_torch.slam.solver import fetch_packed
-
         f32 = torch.float32
         imgs = self._upload(images)
         chw = imgs.ndim == 4 and imgs.shape[1] == 3

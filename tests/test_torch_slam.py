@@ -314,12 +314,15 @@ class TestSolver:
         tsolver.run()
         return tsolver, jsolver.trajectory()[0], gt_c2w(poses)
 
-    @pytest.mark.parametrize("chunk_scales,ate_bound", [(None, 5e-3), (POW2_SCALES, 1e-2)])
-    def test_matches_jax_solver(self, tmp_path, chunk_scales, ate_bound):
-        tsolver, c2w_jax, gt = self.run_both(tmp_path, chunk_scales)
+    @pytest.mark.parametrize("chunk_scales,ate_bound,n_frames,dedup_skip", [
+        (None, 5e-3, 14, [0, 1, 1, 4]), (POW2_SCALES, 1e-2, 14, [0, 1, 1, 4]),
+        # fewer frames than one chunk: the tail runs as chunk 0
+        (None, 5e-3, 3, [0])])
+    def test_matches_jax_solver(self, tmp_path, chunk_scales, ate_bound, n_frames, dedup_skip):
+        tsolver, c2w_jax, gt = self.run_both(tmp_path, chunk_scales, n_frames=n_frames)
         c2w, intrs = tsolver.trajectory()
-        assert c2w.shape == (14, 4, 4) and intrs.shape == (14, 3, 3)
-        assert [r["dedup_skip"] for r in tsolver.results] == [0, 1, 1, 4]
+        assert c2w.shape == (n_frames, 4, 4) and intrs.shape == (n_frames, 3, 3)
+        assert [r["dedup_skip"] for r in tsolver.results] == dedup_skip
         np.testing.assert_allclose(c2w, c2w_jax, atol=1e-4)
         assert ate_rmse(c2w, gt) < ate_bound
 
@@ -378,40 +381,59 @@ class TestSolver:
             assert a.dtype == b.dtype and np.array_equal(a, b)
 
     def test_materialize_is_one_packed_fetch(self, tmp_path, capsys, monkeypatch):
-        """Stats (f32 and f64 scalars), f64 poses and f32 intrinsics of three
-        chunks leave the device in ONE ``.cpu()`` call and come back bit for
-        bit in their own dtypes; arrays that were already fetched stay."""
-        solver = SLAMSolver(str(tmp_path), self.CONFIG, model=SyntheticDA3(make_trajectory(3)),
-                            viewer=None, device="cpu")
+        """Device-resident without a loop closer: stats (f32 and f64 scalars),
+        f64 poses and f32 intrinsics of three chunks leave the device in ONE
+        ``.cpu()`` call and come back bit for bit in their own dtypes.  With
+        a loop closer the poses were fetched a chunk: they stay, and the
+        intrinsics come back in one call.  The host path fetches nothing."""
+        def solver(resident, loop=False):
+            cfg = {k: dict(v) for k, v in self.CONFIG.items()}
+            cfg["Model"]["device_resident"] = resident
+            if loop:
+                cfg["Loop"] = {"enable": True}
+            return SLAMSolver(str(tmp_path), cfg, model=SyntheticDA3(make_trajectory(3)),
+                              viewer=None, device="cpu")
+
         rng = np.random.default_rng(0)
         ext = [torch.from_numpy(rng.normal(size=(5, 3, 4))) for _ in range(3)]  # f64
         intr = [torch.from_numpy(rng.normal(size=(5, 3, 3)).astype(np.float32)) for _ in range(3)]
-        host = rng.normal(size=(5, 3, 3)).astype(np.float32)
-        solver.results = [{"extrinsics_global": e, "intrinsics": k} for e, k in zip(ext, intr)]
-        solver.results.append({"extrinsics_global": ext[0].numpy(), "intrinsics": host})
-        solver._deferred_stats = [
+        calls = []
+        fetch = torch.Tensor.cpu
+        monkeypatch.setattr(torch.Tensor, "cpu", lambda t, *a, **k: (calls.append(1),
+                                                                    fetch(t, *a, **k))[1])
+        deferred = solver(True)
+        deferred.results = [{"extrinsics_global": e, "intrinsics": k} for e, k in zip(ext, intr)]
+        deferred._deferred_stats = [
             ("chunk 1", torch.tensor(1.23456789), torch.tensor(0.5, dtype=torch.float64),
              torch.tensor(1e-3)),
             ("tail chunk (2 new frames)", torch.tensor(0.987654321), torch.tensor(1.0),
              torch.tensor(2.5e-4)),
         ]
-        calls = []
-        fetch = torch.Tensor.cpu
-        monkeypatch.setattr(torch.Tensor, "cpu", lambda t, *a, **k: (calls.append(1),
-                                                                    fetch(t, *a, **k))[1])
-        solver._materialize()
-        assert len(calls) == 1 and not solver._deferred_stats
+        deferred._materialize()
+        assert len(calls) == 1 and not deferred._deferred_stats
         assert capsys.readouterr().out.splitlines() == [
             "  chunk 1: depth_scale=1.2346 fitness=0.5000 inlier_rmse=0.00100",
             "  tail chunk (2 new frames): depth_scale=0.9877 fitness=1.0000 inlier_rmse=0.00025"]
-        for r, e, k in zip(solver.results, ext, intr):
+        for r, e, k in zip(deferred.results, ext, intr):
             assert r["extrinsics_global"].dtype == np.float64
             assert r["intrinsics"].dtype == np.float32
             assert np.array_equal(r["extrinsics_global"], e.numpy())
             assert np.array_equal(r["intrinsics"], k.numpy())
-        assert solver.results[3]["intrinsics"] is host
-        solver._materialize()  # nothing left on the device: no fetch, no output
-        assert len(calls) == 1 and capsys.readouterr().out == ""
+
+        looped = solver(True, loop=True)
+        poses = [e.numpy() for e in ext]
+        looped.results = [{"extrinsics_global": e, "intrinsics": k} for e, k in zip(poses, intr)]
+        looped._materialize()
+        assert len(calls) == 2 and capsys.readouterr().out == ""
+        for r, e, k in zip(looped.results, poses, intr):
+            assert r["extrinsics_global"] is e
+            assert r["intrinsics"].dtype == np.float32 and np.array_equal(r["intrinsics"], k.numpy())
+
+        host = solver(False)
+        host.results = [dict(r) for r in looped.results]
+        host._materialize()  # nothing on the device: no fetch, no output
+        assert len(calls) == 2 and capsys.readouterr().out == ""
+        assert all(r["intrinsics"] is k["intrinsics"] for r, k in zip(host.results, looped.results))
 
     def test_rejects_what_is_not_ported(self, tmp_path, capsys, monkeypatch):
         """Nothing is refused now.  ``viewer="auto"`` (the default) runs

@@ -195,7 +195,7 @@ def test_a_span_closes_on_an_exception():
 
 def test_transfer_spans_count_the_bytes_moved(tiny_model):
     """``model.fetch``: the prediction's fields; ``align.upload``: the eight
-    inputs made float32; ``align.fetch``: the eight results."""
+    inputs made float32; ``align.fetch``: the six results."""
     t0 = time.perf_counter()
     rng = np.random.default_rng(1)
     frames = rng.integers(0, 256, size=(3, 56, 70, 3)).astype(np.uint8)
@@ -218,8 +218,8 @@ def test_transfer_spans_count_the_bytes_moved(tiny_model):
     upload = (2 * pred.depth[-1].size + 9 + pred.depth.size + pred.conf.size
               + pred.intrinsics.size + pred.extrinsics.size + 12) * f32
     assert recs["align.upload"].attrs == {"bytes": upload}
-    # depth_scaled, extrinsics_global, the next overlap pose, the scale, R, t, fitness, rmse
-    results = (pred.depth.size + pred.extrinsics.size + 12 + 1 + 9 + 3 + 1 + 1) * f32
+    # depth_scaled, extrinsics_global, the next overlap pose, the scale, fitness, rmse
+    results = (pred.depth.size + pred.extrinsics.size + 12 + 1 + 1 + 1) * f32
     assert recs["align.fetch"].attrs == {"bytes": results}
     assert recs["align.upload"].parent is None  # called outside a chunk here
 

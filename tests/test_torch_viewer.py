@@ -276,12 +276,10 @@ class TestViewerParity:
 
     def test_batch_is_one_fetch(self, viewers, monkeypatch):
         _, tcls = viewers
-        import da3slam_tpu_torch.slam.solver as solver_mod
-
         calls = []
-        fetch = solver_mod.fetch_packed
-        monkeypatch.setattr(solver_mod, "fetch_packed", lambda ts: (calls.append(len(ts)),
-                                                                   fetch(ts))[1])
+        fetch = tviewer.fetch_packed
+        monkeypatch.setattr(tviewer, "fetch_packed", lambda ts: (calls.append(len(ts)),
+                                                                fetch(ts))[1])
         frames = [frame_inputs(seed=i) for i in range(4)]
         tcls(port=0).add_frames(*(np.stack(x) for x in zip(*frames)))
         assert calls == [9]
