@@ -406,6 +406,21 @@ INT8_CASES = [
     ("bk192", torch.float32, (2, 700, 3, 64), 192),
 ]
 INT8_SOFTMAX_REL_TOL = 0.08  # the tool's limit, at its check shape
+# The bf16 LayerNorm kernel (ops/layer_norm.py) at the main path's widths:
+# (label, views, tokens a view, width, prefix tokens cut).  19,515 rows of a
+# chunk of 15 views at 1301 tokens (SMALL, the VGGT blocks and metric ViT-L,
+# the giant), and a VGGT DPT tap with its 5 prefix tokens cut (strided rows).
+# QK-norm + RoPE: q and k of a VGGT block from one qkv buffer [15, 1301, 3072]
+# with 1301 table positions, which frame and global blocks alike hand the
+# kernel (a global block views the result as one sequence after it).  Every
+# element within one bf16 unit in the last place of the composition it
+# replaces.
+LN_CASES = [("small", 15, 1301, 384, 0), ("large", 15, 1301, 1024, 0),
+            ("giant", 15, 1301, 1536, 0), ("tap", 15, 1301, 2048, 5)]
+LN_QK_CASES = [("qk", 15, 1301)]
+LN_MAX_ULPS = 1.0
+# inputs cycled through so that a timed run reads from memory, not from L2
+LN_COLD_BYTES = 200e6
 # W8A8 against float at LARGE: tests/test_quant.py's limits (depth relative
 # L2, extrinsics max abs)
 W8A8_DEPTH_REL_TOL = 0.05
@@ -447,10 +462,13 @@ N_FRAMES = 31
 # and det wait for the device, 21 times over the two aligned chunks
 ICP_LOOP_SYNCS = 0
 IRLS_LOOP_SYNCS = 21
-EXPECTED_LAUNCHES = 12 * 3  # 12 encoder blocks x 3 chunks
+# The kernels a bf16 forward of SMALL's 12 encoder blocks launches: the bound
+# flash forward once a block, the LayerNorm kernel twice a block and once for
+# the final norm (vit_launches); three chunks
+EXPECTED_LAUNCHES = {"flash_attn_bound_fwd": 12 * 3, "layer_norm": 25 * 3}
 ALIGN_ARGS = ["--model", "large", "--method", "irls", "--chunk_size", "15", "--overlap", "1",
               "--headless"]
-ALIGN_EXPECTED_LAUNCHES = 24 * 3  # LARGE: 24 encoder blocks x 3 chunks
+ALIGN_EXPECTED_LAUNCHES = {"flash_attn_bound_fwd": 24 * 3, "layer_norm": 49 * 3}  # LARGE
 # The loop paths read 36 generated frames and the same 36 in reverse: 72
 # frames whose second half revisits the first.  main_slam takes them in
 # chunks of 15 (overlap 1), the streaming CLI in its default chunks of 16
@@ -508,9 +526,9 @@ RENDER_INTERP, RENDER_LSB_SHARE = 2, 0.999
 # seed 1) made on the card, written as a torch-style nested checkpoint
 # directory and run by main_slam over the 31 frames (chunk 15, overlap 1: three
 # chunks).  Each chunk runs the bound forward once a giant block and once a
-# large block on the reference view
+# large block on the reference view, the LayerNorm kernel 81 + 49 times
 NESTED_NAME = "DA3NESTED-GIANT-LARGE-1.1"
-NESTED_EXPECTED_LAUNCHES = (40 + 24) * 3
+NESTED_EXPECTED_LAUNCHES = {"flash_attn_bound_fwd": (40 + 24) * 3, "layer_norm": (81 + 49) * 3}
 # card against CPU in f32 (MODEL_PARITY_TOL) and the parity CLI: giant and
 # large widths cut to 4 blocks each, 2 frames at 518²
 NESTED_PARITY_DEPTH = 4
@@ -773,6 +791,7 @@ def cuda_ms(fn, reps: int) -> float:
 def counters():
     from da3slam_tpu_torch.ops import conv3x3, flash_probes, int8_flash
     from da3slam_tpu_torch.ops import flash_attention as fa
+    from da3slam_tpu_torch.ops import layer_norm as fused_norm
 
     return {"flash_attn_bound_fwd": fa.flash_attention_bound,
             "flash_attn_stable_fwd": fa.flash_attention_stable,
@@ -782,12 +801,20 @@ def counters():
             "flash_probe_nomax": flash_probes.flash_nomax,
             "flash_probe_bisect": flash_probes.flash_bisect,
             "flash_probe_lab": flash_probes.flash_lab,
-            "int8_flash_fwd": int8_flash.int8_flash}
+            "int8_flash_fwd": int8_flash.int8_flash,
+            "layer_norm": fused_norm.layer_norm}
 
 
 def expected_launches(**nonzero: int) -> dict:
     """Every kernel's expected count on a path: 0 unless named."""
     return {name: nonzero.get(name, 0) for name in counters()}
+
+
+def vit_launches(depth: int, forwards: int = 1) -> dict:
+    """The kernels of ``forwards`` bf16 inference forwards of a ViT encoder
+    of ``depth`` blocks: the bound flash forward once a block, the LayerNorm
+    kernel twice a block and once for the final norm."""
+    return {"flash_attn_bound_fwd": depth * forwards, "layer_norm": (2 * depth + 1) * forwards}
 
 
 @contextlib.contextmanager
@@ -1404,7 +1431,7 @@ def phase_main_path(path_launches: dict) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = path_launches["main_slam"]
-    expected = expected_launches(flash_attn_bound_fwd=EXPECTED_LAUNCHES)
+    expected = expected_launches(**EXPECTED_LAUNCHES)
     poses = np.loadtxt(out_dir / "camera_poses.txt", ndmin=2)
     ok = poses.shape == (N_FRAMES, 16) and np.isfinite(poses).all()
     # the same solver split into load, loop and final fetch (launch counts
@@ -1738,6 +1765,128 @@ def phase_int8_flash() -> dict:
     return {"int8_flash_fwd": rows}
 
 
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """|got - want| in bf16 units in the last place: ``ulps`` at the larger of
+    the two values, taken no smaller than at 2^-12 of the largest |want|
+    (nearer zero, where x - mean or a RoPE pair cancels, the f32 sums' own
+    rounding, a few 2^-24 of terms as large as the largest value, sets the last
+    bits of the composition and of the kernel alike); ``raw_ulps`` without that
+    floor, with the value where it is largest and how many elements exceed 1."""
+    a, b = got.float().flatten(), want.float().flatten()
+    big = torch.maximum(a.abs(), b.abs())
+
+    def ulps(mag):
+        return (a - b).abs() / torch.exp2(torch.floor(torch.log2(mag.clamp_min(2.0 ** -126))) - 7)
+
+    raw = ulps(big)
+    worst = int(raw.argmax())
+    return {"ulps": ulps(torch.maximum(big, 2.0 ** -12 * b.abs().max())).max().item(),
+            "raw_ulps": raw[worst].item(), "raw_ulps_at": b[worst].item(),
+            "raw_over_1": int((raw > 1).sum()), "max_abs_err": (a - b).abs().max().item(),
+            "max_abs": b.abs().max().item()}
+
+
+def phase_layer_norm() -> dict:
+    """The one-pass bf16 LayerNorm kernel and its QK-norm + RoPE epilogue
+    against the composition it replaces (``vit.layer_norm`` /
+    ``vggt.qk_norm_rope`` on tensors that require grad, which keep it), at
+    the main path's shapes.  ``ms`` is one call's device time (for QK: q and
+    k, one span's work), the profiler's over 20 calls on inputs cycled past
+    the L2 cache;
+    ``bound_ms`` its bytes (bf16 in and out once) at 3.35 TB/s; ``plain_ms``
+    the composition; ``library_ms`` one ``F.layer_norm`` on the bf16 input
+    (bf16 weights; no RoPE), a yardstick the port does not call.  The driven
+    paths below count the kernel's launches (``counters``)."""
+    import torch.nn.functional as F
+    from torch import nn
+
+    from da3slam_tpu_torch.models import vggt, vit
+    from da3slam_tpu_torch.ops import layer_norm as fused
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def norm(width: int) -> nn.LayerNorm:
+        ln = nn.LayerNorm(width, eps=1e-6).cuda()
+        with torch.no_grad():
+            ln.weight.copy_(1 + 0.5 * torch.randn(width, generator=gen, device="cuda"))
+            ln.bias.copy_(0.3 * torch.randn(width, generator=gen, device="cuda"))
+        return ln
+
+    def composition(fn, ln, x, *rest):
+        with torch.enable_grad():
+            return fn(ln, x.detach().requires_grad_(), *rest).detach()
+
+    def per_call_ms(fn, inputs, calls: int = 20) -> float:
+        """Device time of one call: the profiler's sum over the kernels of
+        ``calls`` calls (a host clock here would time the launches)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn(inputs[0])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(calls):
+                fn(inputs[i % len(inputs)])
+            torch.cuda.synchronize()
+        us = sum(e.device_time_total for e in prof.key_averages())
+        return us / calls / 1e3
+
+    rows = []
+    for label, N, S, W, cut in LN_CASES:
+        n_in = max(1, int(-(-LN_COLD_BYTES // (N * S * W * 2))))
+        xs = [torch.randn(N, S, W, generator=gen, device="cuda").bfloat16()[:, cut:]
+              for _ in range(n_in)]
+        ln = norm(W)
+        wb, bb = ln.weight.detach().bfloat16(), ln.bias.detach().bfloat16()
+        with torch.no_grad():
+            out = vit.layer_norm(ln, xs[0])
+            ulps = bf16_ulps(out, composition(vit.layer_norm, ln, xs[0]))
+            nbytes = 2 * xs[0].numel() * 2
+            row = {"case": label, "shape": list(xs[0].shape), "strided": bool(cut),
+                   **ulps, "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                   "bytes": nbytes,
+                   "ms": per_call_ms(lambda x: fused.layer_norm(ln.weight, ln.bias, x, 1e-6), xs),
+                   "library_ms": per_call_ms(lambda x: F.layer_norm(x, (W,), wb, bb, 1e-6), xs)}
+        row["plain_ms"] = per_call_ms(lambda x: composition(vit.layer_norm, ln, x), xs)
+        row["roofline_pct"] = 100 * row["bound_ms"] / row["ms"]
+        rows.append(row)
+    for label, N, P in LN_QK_CASES:
+        n_in = max(1, int(-(-LN_COLD_BYTES // (N * P * 3072 * 2))))
+        qkvs = [torch.randn(N, P, 3072, generator=gen, device="cuda").bfloat16()
+                for _ in range(n_in)]
+        ang = 40 * torch.rand(P, 2, 16, generator=gen, device="cuda", dtype=torch.float64)
+        cos, sin = torch.cos(ang).float(), torch.sin(ang).float()
+        q_norm, k_norm = norm(64), norm(64)
+
+        def qk(qkv, fn=vggt.qk_norm_rope, wrap=lambda f, *a: f(*a)):
+            q, k, _ = vggt._split_heads(qkv, 16)
+            return (wrap(fn, q_norm, q, cos, sin), wrap(fn, k_norm, k, cos, sin))
+
+        def library(qkv):
+            q, k, _ = vggt._split_heads(qkv, 16)
+            for t, ln in ((q, q_norm), (k, k_norm)):
+                F.layer_norm(t, (64,), ln.weight.detach().bfloat16(), ln.bias.detach().bfloat16(),
+                             1e-6)
+
+        with torch.no_grad():
+            got = qk(qkvs[0])
+            want = qk(qkvs[0], wrap=composition)
+            nbytes = 4 * N * P * 1024 * 2
+            row = {"case": label, "shape": [N, P, 16, 64], "strided": True,
+                   **max((bf16_ulps(g, w) for g, w in zip(got, want)), key=lambda u: u["ulps"]),
+                   "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                   "bytes": nbytes,
+                   "ms": per_call_ms(qk, qkvs), "library_ms": per_call_ms(library, qkvs)}
+        row["plain_ms"] = per_call_ms(lambda x: qk(x, wrap=composition), qkvs)
+        row["roofline_pct"] = 100 * row["bound_ms"] / row["ms"]
+        rows.append(row)
+        del qkvs
+    emit("layer_norm", rows=rows, gpu=gpu_state())
+    bad = [r["case"] for r in rows if not r["ulps"] <= LN_MAX_ULPS]
+    if bad:
+        fail(f"layer_norm: {bad} beyond {LN_MAX_ULPS} bf16 ulp")
+    return {"layer_norm": rows}
+
+
 def phase_tools(path_launches: dict) -> None:
     """The five probe tools through their ``main``: every row that carries a
     kernel's error against its plain version is held here to the bounds of the
@@ -1801,7 +1950,7 @@ def phase_main_align(path_launches: dict) -> None:
     stats = [[float(x) for x in ln.replace("=", " ").split()[3::2]]
              for ln in out.getvalue().splitlines() if ln.startswith("chunk ")]
     launches = path_launches["main_align"]
-    expected = expected_launches(flash_attn_bound_fwd=ALIGN_EXPECTED_LAUNCHES)
+    expected = expected_launches(**ALIGN_EXPECTED_LAUNCHES)
     pts, cols = read_ply(ply)
     emit("main_align", args=ALIGN_ARGS, frames=N_FRAMES, wall_s=wall,
          frames_per_s=N_FRAMES / wall,
@@ -1835,7 +1984,8 @@ def phase_w8a8(path_launches: dict) -> None:
         pred_q = qmodel.inference(image=frames)
         torch.cuda.synchronize()
     launches = path_launches["w8a8"]
-    expected = expected_launches(flash_attn_bound_fwd=model.cfg.depth)
+    # the block norms are W8A8's own (layer_norm_quant); the final norm the kernel
+    expected = expected_launches(flash_attn_bound_fwd=model.cfg.depth, layer_norm=1)
     pred_f = model.inference(image=frames)
     finite = all(bool(np.isfinite(getattr(pred_q, f)).all())
                  for f in ("depth", "conf", "extrinsics", "intrinsics"))
@@ -1984,7 +2134,7 @@ def phase_main_slam_irls(path_launches: dict) -> dict:
         launches = path_launches[f"main_slam_{tag}"]
         if poses.shape != (N_FRAMES, 16) or not np.isfinite(poses).all():
             fail(f"main_slam {tag}: poses {poses.shape}, finite={np.isfinite(poses).all()}")
-        if launches != expected_launches(flash_attn_bound_fwd=EXPECTED_LAUNCHES):
+        if launches != expected_launches(**EXPECTED_LAUNCHES):
             fail(f"main_slam {tag}: launches {launches}")
         split = solver_split(load_config(str(cfg)))
         split["vs_whole_run_max_abs_diff"] = float(
@@ -2227,7 +2377,7 @@ def phase_main_slam_loop(path_launches: dict) -> None:
     closer = box["solver"].loop_closer
     attempts = _attempts(closer.attempts)
     launches = path_launches["main_slam_loop"]
-    expected = expected_launches(flash_attn_bound_fwd=12 * (LOOP_CHUNKS + len(attempts)))
+    expected = expected_launches(**vit_launches(12, LOOP_CHUNKS + len(attempts)))
     poses = np.loadtxt(out_dir / "camera_poses.txt", ndmin=2)
     emit("main_slam_loop", frames=LOOP_FRAMES, chunks=len(box["solver"].results),
          joint_reinferences=len(attempts), joint_views=30, joint_seq_len=30 * 1301,
@@ -2290,7 +2440,7 @@ def phase_streaming(path_launches: dict) -> None:
         DA3Streaming.save_mesh = save_mesh
     attempts = _attempts(run.loop_attempts)
     launches = path_launches["streaming"]
-    expected = expected_launches(flash_attn_bound_fwd=12 * (LOOP_CHUNKS + len(attempts)))
+    expected = expected_launches(**vit_launches(12, LOOP_CHUNKS + len(attempts)))
     files = {name: np.loadtxt(out_dir / name, ndmin=2) for name in
              ("camera_poses.txt", "camera_poses_tum.txt", "camera_poses_kitti.txt")}
     pts, cols = port_read_ply(out_dir / "combined_pcd.ply")
@@ -2422,7 +2572,7 @@ def phase_pipeline(path_launches: dict, slam_runs: dict) -> None:
         stats[tag] = {"wall_s": wall, "frames_per_s": N_FRAMES / wall, "host_syncs": syncs,
                       "bound_launches": launches["flash_attn_bound_fwd"],
                       "outputs_are": type(box["out"].depth).__name__}
-        if launches != expected_launches(flash_attn_bound_fwd=EXPECTED_LAUNCHES):
+        if launches != expected_launches(**EXPECTED_LAUNCHES):
             fail(f"pipeline {tag}: launches {launches}")
         if not all(np.isfinite(a).all() for a in outs[tag]):
             fail(f"pipeline {tag}: outputs not finite")
@@ -2720,7 +2870,7 @@ def phase_main_mesh(path_launches: dict, image_dir: Path) -> None:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         launches = path_launches[f"main_mesh_{tag}"]
-        expected = expected_launches(flash_attn_bound_fwd=12 * MESH_CHUNKS)
+        expected = expected_launches(**vit_launches(12, MESH_CHUNKS))
         verts, faces, cols = read_mesh_ply(out, with_colors=True)
         runs[tag] = {"wall_s": wall, "frames_per_s": N_FRAMES / wall,
                      "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
@@ -2939,7 +3089,7 @@ def phase_main_3dgs(path_launches: dict, image_dir: Path) -> Path:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         launches = path_launches[f"main_3dgs_{tag}"]
-        expected = expected_launches(flash_attn_bound_fwd=12 * MESH_CHUNKS)
+        expected = expected_launches(**vit_launches(12, MESH_CHUNKS))
         gs = read_3dgs_ply(out)
         finite = all(np.isfinite(v).all() for v in gs.values())
         run = {"wall_s": wall, "frames_per_s": N_FRAMES / wall, "splats": res["n"],
@@ -3175,7 +3325,7 @@ def phase_main_slam_nested(path_launches: dict, ckpt: Path, nested) -> Path:
         shutil.rmtree(ckpt.parent, ignore_errors=True)
     torch.cuda.empty_cache()
     launches = path_launches["main_slam_nested"]
-    expected = expected_launches(flash_attn_bound_fwd=NESTED_EXPECTED_LAUNCHES)
+    expected = expected_launches(**NESTED_EXPECTED_LAUNCHES)
     poses = np.loadtxt(out_dir / "camera_poses.txt", ndmin=2)
     scales = [float(s) for s in scales]
     run_s = wall - seconds["load"]
@@ -3321,7 +3471,7 @@ def phase_main_conf(path_launches: dict) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = path_launches["main_conf"]
-    expected = expected_launches(flash_attn_bound_fwd=12)
+    expected = expected_launches(**vit_launches(12))
     rows = [{k: (v.tolist() if isinstance(v, np.ndarray) else v) for k, v in s.items()
              if k in ("min", "max", "mean", "median", "counts")} for s in stats]
     emit("main_conf", preset="small", frames=CONF_CHUNK, wall_s=wall, stats=rows,
@@ -3453,6 +3603,17 @@ def _multi_expected(cfg, mode: str, world: int) -> int:
     return MULTI_WINDOWS * cfg.depth // world
 
 
+def _multi_norms(cfg, mode: str, world: int, rank: int) -> int:
+    """LayerNorm kernel launches a rank makes over the two windows: two a
+    block it runs and one for the final norm a window it encodes; in pp a
+    stage's blocks, the final norm on the last stage."""
+    if mode == "dp":
+        return (2 * cfg.depth + 1) * -(-MULTI_WINDOWS // world)
+    if mode == "sp":
+        return MULTI_WINDOWS * (2 * cfg.depth + 1)
+    return MULTI_WINDOWS * (2 * (cfg.depth // world) + (rank == world - 1))
+
+
 def _ring_check(group) -> list:
     """The card's ring (bound forward per hop, folded by lse) against its
     plain version (the JAX online softmax) on the card, at sp's hop shape:
@@ -3561,7 +3722,7 @@ def _multi_reference(path_launches: dict, preset: str) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = path_launches[f"mesh_reference_{preset}"]
-    if launches != expected_launches(flash_attn_bound_fwd=MULTI_WINDOWS * cfg.depth):
+    if launches != expected_launches(**vit_launches(cfg.depth, MULTI_WINDOWS)):
         fail(f"mesh reference {preset}: launches {launches}")
     ref = {"out": [t.cpu().numpy() for t in out], "f32": f32, "wall_s": wall, "cfg": cfg,
            "preset": preset,
@@ -3592,7 +3753,9 @@ def _emit_mesh(path_launches: dict, phase: str, mode: str, backend: str, res: di
                                    / max(float(np.abs(b).max()), 1e-30)),
                       "tol": MODEL_PARITY_TOL}
                for name, a, b in zip(PipelineOutput._fields, res["f32_out"], ref["f32"])}
-    want = expected_launches(flash_attn_bound_fwd=_multi_expected(cfg, mode, world))
+    wants = [expected_launches(flash_attn_bound_fwd=_multi_expected(cfg, mode, world),
+                               layer_norm=_multi_norms(cfg, mode, world, r))
+             for r in range(world)]
     for r, st in enumerate(res["ranks"]):
         path_launches[f"{phase}.rank{r}"] = st["launches"]
     wall = max(st["wall_s"] for st in res["ranks"])
@@ -3601,7 +3764,9 @@ def _emit_mesh(path_launches: dict, phase: str, mode: str, backend: str, res: di
          dtype="bfloat16", layerscale=MULTI_LAYERSCALE, align="umeyama",
          vs_single_process=errs, bit_equal=bit_equal,
          launches_per_rank=[st["launches"]["flash_attn_bound_fwd"] for st in res["ranks"]],
-         expected_launches_per_rank=want["flash_attn_bound_fwd"],
+         expected_launches_per_rank=wants[0]["flash_attn_bound_fwd"],
+         norms_per_rank=[st["launches"]["layer_norm"] for st in res["ranks"]],
+         expected_norms_per_rank=[w["layer_norm"] for w in wants],
          host_staged_bytes_per_rank=[st["host_bytes"] for st in res["ranks"]],
          param_bytes_per_rank=[st["param_bytes"] for st in res["ranks"]],
          peak_bytes_per_rank=[st["peak_bytes"] for st in res["ranks"]],
@@ -3612,7 +3777,7 @@ def _emit_mesh(path_launches: dict, phase: str, mode: str, backend: str, res: di
          single_process_param_bytes=ref["param_bytes"],
          single_process_peak_bytes=ref["peak_bytes"],
          spawn_s=spawn_s, ring=res.get("ring"), f32_vs_single_f32=f32)
-    for r, st in enumerate(res["ranks"]):
+    for r, (st, want) in enumerate(zip(res["ranks"], wants)):
         if st["launches"] != want:
             fail(f"{phase}: rank {r} launches {st['launches']} != {want}")
     if not ok:
@@ -4322,7 +4487,7 @@ def phase_main_slam_viewer(path_launches: dict) -> None:
             main_slam.time = saved_time
         cli_clouds = check_viewer_clouds(calls)
     poses = np.loadtxt(out_dir / "camera_poses.txt", ndmin=2)
-    expected = expected_launches(flash_attn_bound_fwd=EXPECTED_LAUNCHES)
+    expected = expected_launches(**EXPECTED_LAUNCHES)
     launches = {k: path_launches[k] for k in ("main_slam_viewer", "main_slam_viewer_cli")}
     headless = [r for t, r in rates if t == "headless"]
     viewer_rates = [r for t, r in rates if t == "viewer"]
@@ -4390,7 +4555,7 @@ def phase_main_align_viewer(path_launches: dict) -> None:
     finally:
         viewer_mod.time = saved_time
     launches = path_launches["main_align_viewer"]
-    expected = expected_launches(flash_attn_bound_fwd=EXPECTED_LAUNCHES)
+    expected = expected_launches(**EXPECTED_LAUNCHES)
     names = [c.name for c in servers[0].scene.clouds] if servers else []
     emit("main_align_viewer", args=args[2:], clouds=clouds, cloud_names=names,
          batches=[len(c[2][1]) for c in calls], kept_alive=interrupted, wall_s=wall,
@@ -4444,7 +4609,7 @@ def phase_main_video(path_launches: dict) -> None:
             missing = [f for f in files + ["cropped", "normalized"] if not (out / f).exists()]
             poses = np.loadtxt(out / "slam" / "camera_poses.txt", ndmin=2)
             n_chunks = len(ran.chunk_ranges) if mode == "streaming" else ran.chunk_count
-            expected = expected_launches(flash_attn_bound_fwd=12 * n_chunks)
+            expected = expected_launches(**vit_launches(12, n_chunks))
             launches = path_launches[f"main_video_{mode}"]
             rows[mode] = {"wall_s": wall, "frames_per_s": N_FRAMES / wall, "chunks": n_chunks,
                           "missing": missing, "poses_shape": list(poses.shape),
@@ -4493,7 +4658,7 @@ def phase_batch_viewer(path_launches: dict) -> None:
         _host_cloud(scene["depth"][i], scene["intrinsics"][i], scene["extrinsics"][i], s,
                     viewer.min_depth, viewer.max_depth)[1]]) for i in range(len(paths)))
     launches = path_launches["batch_viewer"]
-    expected = expected_launches(flash_attn_bound_fwd=12)
+    expected = expected_launches(**vit_launches(12))
     emit("batch_viewer", frames=len(paths), clouds=clouds, batches=len(calls),
          sky_share=float((masked == 0).mean()), show_s=wall,
          sent=len(servers[0].scene.clouds), confs_equal_host_mask=conf_ok,
@@ -4524,7 +4689,7 @@ def phase_profile_trace(path_launches: dict) -> None:
     kernels = [e for e in events if e.get("cat") == "kernel"]
     flash = [e for e in kernels if PROFILE_KERNEL in e.get("name", "")]
     launches = path_launches["profile_trace"]
-    expected = expected_launches(flash_attn_bound_fwd=12)
+    expected = expected_launches(**vit_launches(12))
     launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
                  if e.get("cat") in ("cuda_runtime", "cuda_driver")
                  and "correlation" in e.get("args", {})}
@@ -4570,7 +4735,7 @@ def phase_main_conf_figures(path_launches: dict) -> None:
     launches = path_launches["main_conf_figures"]
     pngs = sorted(p.name for p in out_dir.glob("*.png")) if out_dir.exists() else []
     want_pngs = [f"comparison_{i:03d}.png" for i in range(CONF_CHUNK)] + ["heatmap_grid.png"]
-    expected = expected_launches(flash_attn_bound_fwd=12 if case == "figures" else 0)
+    expected = expected_launches(**(vit_launches(12) if case == "figures" else {}))
     print(f"main_conf_figures: {case}", flush=True)
     emit("main_conf_figures", case=case, error=error, pngs=pngs, kernel_launches=launches,
          expected_launches=expected)
@@ -4832,6 +4997,9 @@ SOURCES = {
                         "tools/flash_lab.py:34", "tool"),
     "int8_flash_fwd": ("da3slam_tpu_torch/ops/csrc/int8_flash_fwd.cu",
                        "tools/int8_flash_probe.py:51", "tool"),
+    # replaces no TPU kernel: XLA fuses the JAX package's LayerNorm into one pass
+    "layer_norm": ("da3slam_tpu_torch/ops/csrc/layer_norm.cu",
+                   "da3slam_tpu/models/vit.py:104", "giant"),
 }
 
 
@@ -4853,6 +5021,7 @@ def main() -> None:
     rows.update(phase_conv3x3())
     rows.update(phase_flash_probes())
     rows.update(phase_int8_flash())
+    rows.update(phase_layer_norm())
     phase_tools(path_launches)
     phase_main_align(path_launches)
     phase_w8a8(path_launches)

@@ -25,6 +25,7 @@ import torch
 from da3slam_tpu_torch.core.transforms import se3_compose, se3_inverse
 from da3slam_tpu_torch.models import camera, dpt, vit
 from da3slam_tpu_torch.models.config import ModelConfig, config_from_json, get_preset
+from da3slam_tpu_torch.ops import layer_norm as fused_norm
 from da3slam_tpu_torch.ops.resize import (
     denormalize_to_uint8,
     resize_normalize,
@@ -241,7 +242,7 @@ class DepthAnything3:
             raise ValueError(f"unsupported process_res_method {process_res_method!r}")
         if export_dir is not None and export_format not in ("mini_npz", "glb"):
             raise ValueError(f"unknown export_format {export_format!r}")
-        with span("model.inference") as attrs:
+        with span("model.inference") as attrs, fused_norm.count_norms(attrs):
             raw = upload_views(image, self.device, attrs)
             h, w = raw.shape[1], raw.shape[2]
             th, tw = upper_bound_shape(h, w, process_res, self.cfg.patch_size)

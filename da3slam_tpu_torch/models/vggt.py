@@ -28,7 +28,9 @@ The network, at the published sizes (``PRESETS["vggt-1b"]``):
 Precision: bf16 activations over f32 parameters on the card (f32 on the CPU)
 in the patch embed, the aggregator and the depth head; every LayerNorm,
 QK-norm included, in f32 (``vit.layer_norm``), and RoPE applied in f32 to
-QK-norm's output, rounded once.  The camera head runs in f32.
+QK-norm's output, rounded once; on the card each is one pass of
+``ops/layer_norm.py``'s kernel, QK-norm and RoPE one pass for q and one for
+k, read from the qkv projection in place.  The camera head runs in f32.
 
 Every attention of the patch embed and the aggregator (head width 64) goes
 through ``vit.multi_head_attention`` (looked up at each call) as
@@ -80,6 +82,7 @@ from da3slam_tpu_torch.core.transforms import (
 from da3slam_tpu_torch.models import dpt, vit
 from da3slam_tpu_torch.models.config import ModelConfig
 from da3slam_tpu_torch.models.da3 import deliver, upload_views
+from da3slam_tpu_torch.ops import layer_norm as fused_norm
 from da3slam_tpu_torch.ops.resize import denormalize_to_uint8, resize_normalize, upper_bound_shape
 from da3slam_tpu_torch.utils.profiling import span
 
@@ -297,7 +300,12 @@ def apply_rope(y: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 def qk_norm_rope(ln: nn.LayerNorm, t: torch.Tensor, cos: torch.Tensor,
                  sin: torch.Tensor) -> torch.Tensor:
     """QK-norm (a LayerNorm over each head's channels) then 2D RoPE of
-    ``t [B, P, H, D]``, in f32, rounded once to t's dtype."""
+    ``t [B, P, H, D]``, in f32, rounded once to t's dtype.  A CUDA bf16 t
+    that needs no gradient takes one pass of ``ops/layer_norm.py``'s kernel
+    (64-wide heads), which reads a view of the qkv projection in place and
+    writes ``[B, P, H, D]`` contiguous; the rest, the composition below."""
+    if fused_norm.takes(t, ln.weight, ln.bias):
+        return fused_norm.layer_norm_rope(ln.weight, ln.bias, t, cos, sin, ln.eps)
     y = F.layer_norm(t.float(), (t.shape[-1],), ln.weight.float(), ln.bias.float(), ln.eps)
     return apply_rope(y, cos, sin).to(t.dtype)
 
@@ -327,7 +335,8 @@ def _dino_attention(heads: int):
 def _aa_attention(attn: QKAttention, heads: int, rope, kind: str):
     """A frame block's attention (within each view, ``[N, P, H, D]``) or a
     global one (all views as one sequence, ``[1, N·P, H, D]``); QK-norm and
-    RoPE in the ``model.qk`` span."""
+    RoPE in the ``model.qk`` span, which hands q and k on in the attention's
+    layout (views: ``qk_norm_rope`` writes them contiguous)."""
     cos, sin = rope
 
     def attend(qkv):
@@ -337,7 +346,10 @@ def _aa_attention(attn: QKAttention, heads: int, rope, kind: str):
         with span("model.qk", B=B, S=S, H=heads, D=q.shape[-1], kind=kind):
             q = qk_norm_rope(attn.q_norm, q, cos, sin)
             k = qk_norm_rope(attn.k_norm, k, cos, sin)
-        q, k, v = (t.reshape(B, S, heads, -1).contiguous() for t in (q, k, v))
+            # views, inside the span: host work after the k launch keeps it
+            # under the span on a trace that places the span's end early
+            q, k = (t.reshape(B, S, heads, -1).contiguous() for t in (q, k))
+        v = v.reshape(B, S, heads, -1).contiguous()
         return vit.multi_head_attention(q, k, v).reshape(N, P, -1)
     return attend
 
@@ -485,7 +497,7 @@ class VGGT:
         device tensors returned without waiting with ``keep_on_device``)."""
         if process_res_method != "upper_bound_resize":
             raise ValueError(f"unsupported process_res_method {process_res_method!r}")
-        with span("model.inference") as attrs:
+        with span("model.inference") as attrs, fused_norm.count_norms(attrs):
             raw = upload_views(image, self.device, attrs)
             th, tw = upper_bound_shape(raw.shape[1], raw.shape[2], process_res,
                                        self.cfg.patch_size)

@@ -25,6 +25,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from da3slam_tpu_torch.models.config import ModelConfig
+from da3slam_tpu_torch.ops import layer_norm as fused_norm
 from da3slam_tpu_torch.ops.attention import multi_head_attention
 from da3slam_tpu_torch.ops.quant import int8_gemm, layer_norm_quant, quantize_rows, quantize_weight
 
@@ -161,7 +162,12 @@ def linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
 
 
 def layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
-    """LayerNorm in f32 regardless of the activation dtype, eps 1e-6."""
+    """LayerNorm in f32 regardless of the activation dtype, eps 1e-6.  A CUDA
+    bf16 x that needs no gradient takes the one-pass kernel
+    (``ops/layer_norm.py``, the same rounding points); the rest, the
+    composition below."""
+    if fused_norm.takes(x, ln.weight, ln.bias):
+        return fused_norm.layer_norm(ln.weight, ln.bias, x, ln.eps)
     out = F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(), ln.bias.float(), ln.eps)
     return out.to(x.dtype)
 

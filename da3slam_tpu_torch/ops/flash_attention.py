@@ -73,7 +73,7 @@ _CSRC = Path(__file__).parent / "csrc"
 _HEADERS = ("flash_common.cuh", "flash_wgmma.cuh", "flash_tf32.cuh", "flash_fwd_tile.cuh")
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "da3slam_tpu_torch"
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # source -> {C entry point: argtypes}
 _SOURCES = {
     "flash_attn_fwd.cu": {
@@ -97,6 +97,11 @@ _SOURCES = {
     # the int8 probe forward (ops/int8_flash.py)
     "int8_flash_fwd.cu": {
         "int8_flash_fwd": [_P] * 6 + [_I] * 4 + [_P],
+    },
+    # LayerNorm of bf16 rows and QK-norm with RoPE (ops/layer_norm.py)
+    "layer_norm.cu": {
+        "layer_norm_bf16": [_P] * 4 + [_L] * 6 + [_I, _F, _P],
+        "layer_norm_rope_bf16": [_P] * 6 + [_L] * 6 + [_F, _P],
     },
 }
 
